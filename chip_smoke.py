@@ -3,22 +3,38 @@
 
     python3 chip_smoke.py
 
-Phases, each of which fails the run (non-zero exit) when it fails:
+Phases, each of which fails the run (non-zero exit) when it fails; each
+prints its wall seconds:
 
 1. environment: card name and power limit, torch and CUDA versions; TF32
    off for matmuls and convolutions;
-2. build: compile the fused-MLP kernel library with nvcc (sm_90a);
-3. kernel parity: the kernel against its plain PyTorch version at every
-   DFP layer shape, M in {1, 2, 4, 8, 16, 37}, all four activations,
+2. build: compile the fused-MLP and window-pack kernel libraries with
+   nvcc (sm_90a), one nvcc per source, started together;
+3. fused-MLP parity: the kernel against its plain PyTorch version at every
+   DFP layer shape, M in {1, 2, 4, 8, 16, 37, 64}, all four activations,
    float32 (rtol = atol = 2e-4) and bfloat16 (2e-2);
-4. timing: kernel, plain version and ``torch.addmm`` + activation (the
-   library yardstick, which the port never calls) at the main-path
-   shapes, each beside its bound; the whole 13-layer DFP forward;
-5. main path: a paper-width MRSch agent (state_dim 11410, random weights
-   from a seed) behind a ``DecisionService(max_batch=16)`` replays
-   full-scale Theta S1 traces, one alone and eight from concurrent client
-   threads; the kernel's launch count must be 13 per forward, and sampled
-   served rows must score the same on the kernel and the plain backend.
+4. window-pack parity: the kernel against its plain version, bit for bit,
+   over shapes (N, J, F, W) up to (512, 2048, 4, 10) and waiting densities
+   0, 0.05, 0.4 and 1;
+5. timing: each kernel, its plain version and (fused MLP only)
+   ``torch.addmm`` + activation (the library yardstick, which the port
+   never calls) at the main paths' shapes, each beside its bound; the
+   whole 13-layer DFP forward at M = 1, 8, 16 and 64;
+6. service path: a paper-width MRSch agent (state_dim 11410, random
+   weights from a seed) behind a ``DecisionService(max_batch=16)``
+   replays full-scale Theta S1 traces, one alone and eight from
+   concurrent client threads; the fused-MLP launch count must be 13 per
+   forward, and sampled served rows must score the same on the kernel and
+   the plain backend; then a host/device breakdown of one client;
+7. device-engine parity: ``DeviceSimulator`` against the sequential
+   ``Simulator`` at full Theta width — FCFS over 8 traces as 8
+   environments, the paper-width agent over one trace, and the decoded
+   event trace of an integer-time trace;
+8. device-engine path: greedy ``DeviceSimulator.rollout()`` of the
+   paper-width agent over 64 full-scale S1 traces (warm-up, then the
+   median of 3), with ``pack_window`` launched once and the fused MLP 13
+   times per deciding round, a ``torch.profiler`` busy share, and one
+   epsilon-greedy collection rollout.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -51,12 +67,23 @@ PEAKS = "H100 SXM data sheet: 3.35 TB/s HBM3, 67 TFLOP/s float32 (700 W)"
 
 DFP_SHAPES = [(11410, 4000), (4000, 1000), (1000, 512), (2, 128), (128, 128),
               (768, 512), (512, 12), (512, 120)]
-PARITY_M = (1, 2, 4, 8, 16, 37)
-TIMING_M = (1, 8, 16)
+PARITY_M = (1, 2, 4, 8, 16, 37, 64)
+TIMING_M = (1, 8, 16, 64)
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
 KERNEL_SOURCE = "src/repro_torch/kernels/fused_mlp/csrc/fused_mlp.cu"
 KERNEL_REPLACES = "src/repro/kernels/fused_mlp/kernel.py:85"
+WP_SOURCE = "src/repro_torch/kernels/window_pack/csrc/window_pack.cu"
+WP_REPLACES = "src/repro/kernels/window_pack/kernel.py:37"
+
+# Window-pack shapes (N, J, F, W): the device engine's main path is N = 64
+# environments, J ~ 330 jobs, F = R + 2 = 4 features, W = 10.
+WP_PARITY = [(1, 40, 4, 10), (3, 50, 7, 10), (64, 330, 4, 10),
+             (512, 2048, 4, 10), (8, 1000, 4, 64), (5, 33, 3, 10),
+             (2, 1, 4, 10)]
+WP_DENSITIES = (0.0, 0.05, 0.4, 1.0)
+WP_TIMING = [(64, 330, 4, 10), (512, 2048, 4, 10)]
+DEVICE_ENVS = 64                 # environments of the device-engine path
 
 
 def log(msg: str) -> None:
@@ -82,15 +109,30 @@ def phase_env() -> str:
     return card
 
 
-def phase_build() -> float:
-    from repro_torch.kernels.fused_mlp import kernel
-    info = kernel.build()
-    kernel._library()
-    log(f"[build] {info.library.name}: {info.seconds:.3f} s of nvcc")
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
-    return info.seconds
+def timed(name: str, fn, *args):
+    """Run one phase and print its wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_build() -> None:
+    """Both kernel libraries, one nvcc per source, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels.fused_mlp import kernel as fm
+    from repro_torch.kernels.window_pack import kernel as wp
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        futures = [pool.submit(k.build) for k in (fm, wp)]
+        infos = [f.result() for f in futures]
+    for k in (fm, wp):
+        k._library()
+    for info in infos:
+        log(f"[build] {info.library.name}: {info.seconds:.3f} s of nvcc")
+        for line in info.log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {line.strip()}")
 
 
 def phase_parity() -> float:
@@ -126,6 +168,81 @@ def phase_parity() -> float:
         f"{worst[torch.float32]!r} (tol 2e-4), bfloat16 "
         f"{worst[torch.bfloat16]!r} (tol 2e-2)")
     return worst[torch.float32]
+
+
+def wp_inputs(n: int, j: int, f: int, density: float, gen) -> tuple:
+    """Waiting mask and features on the card; the first row is made to
+    hold fewer than W waiting jobs (here: three), and J is ragged."""
+    waiting = (torch.rand(n, j, generator=gen, device="cuda")
+               < density).float()
+    if density > 0.0:
+        waiting[0] = 0.0
+        waiting[0, :min(3, j)] = 1.0
+    feats = torch.randn(n, j, f, generator=gen, device="cuda")
+    return waiting, feats
+
+
+def phase_window_pack_parity() -> int:
+    """Kernel vs plain version on the card, bit for bit."""
+    from repro_torch.kernels.window_pack import (pack_window,
+                                                 pack_window_reference)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = 0
+    for n, j, f, w in WP_PARITY:
+        for density in WP_DENSITIES:
+            waiting, feats = wp_inputs(n, j, f, density, gen)
+            out = pack_window(waiting, feats, window=w)
+            ref = pack_window_reference(waiting, feats, window=w)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("win_feats", "win_idx", "win_valid"),
+                                  out, ref):
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    raise AssertionError(
+                        f"[window_pack parity] N={n} J={j} F={f} W={w} "
+                        f"density={density}: {name} differs")
+            cases += 1
+    log(f"[window_pack parity] {cases} cases bit-identical (torch.equal on "
+        f"features, indices and validity)")
+    return cases
+
+
+def wp_bound(waiting: torch.Tensor, f: int, w: int) -> tuple:
+    """(bytes, operations) times of one window pack, in ms, for this
+    data: each row's waiting mask read up to its W-th waiting job (all of
+    it when fewer wait), the selected feature rows read once, the outputs
+    (features, int32 index, byte validity) written once; one compare per
+    mask entry read, over the float32 rate.  Bytes bound it."""
+    n, j = waiting.shape
+    csum = torch.cumsum((waiting > 0.5).int(), dim=1)
+    hit = csum >= w
+    first = torch.where(hit.any(dim=1), hit.int().argmax(dim=1) + 1,
+                        torch.full_like(csum[:, 0], j))
+    read = int(first.sum())
+    selected = int(csum[:, -1].clamp_max(w).sum())
+    nbytes = 4 * read + 4 * f * selected + n * w * (4 * f + 4 + 1)
+    return (nbytes / PEAK_BYTES_PER_S * 1e3,
+            read / PEAK_F32_FLOP_PER_S * 1e3)
+
+
+def phase_window_pack_timing() -> dict:
+    from repro_torch.kernels.window_pack import (pack_window,
+                                                 pack_window_reference)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for n, j, f, w in WP_TIMING:
+        waiting, feats = wp_inputs(n, j, f, 0.4, gen)
+        t_k = device_ms(lambda: pack_window(waiting, feats, window=w), flush)
+        t_p = device_ms(lambda: pack_window_reference(waiting, feats,
+                                                      window=w), flush)
+        b_ms, o_ms = wp_bound(waiting, f, w)
+        out[(n, j, f, w)] = (t_k, t_p, max(b_ms, o_ms),
+                             "bytes" if b_ms >= o_ms else "operations")
+        log(f"[window_pack timing] N={n} J={j} F={f} W={w} (density 0.4): "
+            f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  bound "
+            f"{max(b_ms, o_ms):.6f} ms ({out[(n, j, f, w)][3]}); no single "
+            f"PyTorch call computes it")
+    return out
 
 
 def forward_layers(net) -> list:
@@ -468,6 +585,218 @@ def phase_breakdown(agent, n_decisions: int = 300) -> dict:
     return out
 
 
+def s1_trace(seed: int):
+    """Full-scale Theta S1, 2 days at 160 jobs/day (the service path's
+    traces)."""
+    from repro_torch.workloads import ThetaConfig, build_scenarios
+    cfg = ThetaConfig(duration_days=2.0, jobs_per_day=160.0, seed=seed)
+    return cfg.resources(), build_scenarios(cfg, ("S1",))["S1"]
+
+
+class Recorder:
+    """Wrap a policy so the sequential engine's action sequence is kept."""
+
+    def __init__(self, policy):
+        self.policy, self.actions = policy, []
+
+    def select(self, ctx) -> int:
+        a = int(self.policy.select(ctx))
+        self.actions.append(a)
+        return a
+
+
+def env_actions(ro, i: int) -> list:
+    return [int(a) for a, d in zip(ro.actions[:, i], ro.decided[:, i]) if d]
+
+
+def assert_results_close(a, b, rtol=1e-5, atol=1e-2) -> None:
+    """Host (f64 clock) vs device (f32 clock) results: the same schedule,
+    metrics equal to float32 precision (the rule of the JAX package's
+    tests/test_device.py)."""
+    assert a.decisions == b.decisions, (a.decisions, b.decisions)
+    assert a.n_unstarted == b.n_unstarted, (a.n_unstarted, b.n_unstarted)
+    ra, rb = a.metrics.as_row(), b.metrics.as_row()
+    assert set(ra) == set(rb)
+    for k in ra:
+        assert np.isclose(ra[k], rb[k], rtol=rtol, atol=atol), \
+            (k, ra[k], rb[k])
+    for ja, jb in zip(a.jobs, b.jobs):
+        assert ja.jid == jb.jid and ja.started == jb.started
+        if ja.started:
+            assert np.isclose(ja.start, jb.start, rtol=1e-6, atol=1e-2), \
+                (ja.jid, ja.start, jb.start)
+
+
+def phase_device_parity(agent) -> dict:
+    """The device engine against the sequential engine at full width."""
+    from repro_torch.core import FCFSPolicy
+    from repro_torch.core.dfp import action_values
+    from repro_torch.obs.trace import BufferTracer, canonical_events
+    from repro_torch.sim import DeviceSimulator, SimConfig, Simulator
+
+    # (a) FCFS, 8 traces as 8 environments.
+    traces = [s1_trace(seed) for seed in range(1, 9)]
+    res = traces[0][0]
+    ro = DeviceSimulator(res, [j for _, j in traces], FCFSPolicy()).rollout()
+    for i, (_, jobs) in enumerate(traces):
+        rec = Recorder(FCFSPolicy())
+        seq = Simulator(res, jobs, rec, SimConfig()).run()
+        assert env_actions(ro, i) == rec.actions, f"FCFS env {i} actions"
+        assert_results_close(seq, ro.results[i])
+    log(f"[device parity] (a) FCFS, {len(traces)} environments: actions "
+        f"and results match the sequential engine ({ro.stats.decisions} "
+        f"decisions, {ro.stats.rounds_run} rounds)")
+
+    # (b) the paper-width agent (kernel backend), one environment.
+    res, jobs = traces[0]
+    rec = Recorder(agent)
+    seq = Simulator(res, jobs, rec, SimConfig()).run()
+    dev = DeviceSimulator(res, [jobs], agent)
+    ro = dev.rollout(collect=True)
+    dev_actions = env_actions(ro, 0)
+    rows = torch.from_numpy(np.stack([row for _, _, row, _ in
+                                      ro.transitions()])).to("cuda")
+    sd, m = agent.enc.state_dim, agent.enc.n_resources
+    dfp_torch = replace(agent.dfp, backend="torch")
+    u = []
+    for i in range(0, rows.shape[0], 64):
+        chunk = rows[i:i + 64]
+        u.append(action_values(agent.net, dfp_torch,
+                               chunk[:, :sd].contiguous(),
+                               chunk[:, sd:sd + m].contiguous(),
+                               chunk[:, sd + m:sd + 2 * m].contiguous()))
+    u = torch.where(rows[:, sd + 2 * m:] > 0.5, torch.cat(u),
+                    -torch.inf).cpu().numpy()
+    fin = np.isfinite(u)
+    tol = 2e-4 * max(1.0, float(np.abs(u[fin]).max()))
+    top2 = np.sort(u, axis=1)[:, -2:]
+    margin = top2[:, 1] - top2[:, 0]              # inf with one valid slot
+    ties = np.flatnonzero(margin <= tol)
+    n_cmp = int(ties[0]) if len(ties) else len(dev_actions)
+    assert dev_actions[:n_cmp] == rec.actions[:n_cmp], "agent actions"
+    full = dev_actions == rec.actions
+    if full:
+        assert_results_close(seq, ro.results[0])
+    log(f"[device parity] (b) paper-width agent, 1 environment: "
+        f"{n_cmp} of {len(dev_actions)} decisions compared (first top-2 "
+        f"margin <= tol {tol!r}: "
+        f"{'none' if not len(ties) else int(ties[0])}); actions equal; "
+        + ("whole sequences equal and results close" if full else
+           "sequences part after a near-tie, results not compared"))
+
+    # (c) the decoded event trace, FCFS on an integer-time trace.
+    int_jobs = []
+    for job in jobs:
+        job = job.copy()
+        job.submit = float(round(job.submit))
+        job.runtime = float(max(1, round(job.runtime)))
+        job.walltime = float(max(round(job.walltime), job.runtime))
+        int_jobs.append(job)
+    t_seq, t_dev = BufferTracer(), BufferTracer()
+    Simulator(res, int_jobs, FCFSPolicy(), SimConfig(), tracer=t_seq).run()
+    ds = DeviceSimulator(res, [int_jobs], FCFSPolicy())
+    ds.emit_trace(ds.rollout(trace=True), t_dev)
+    ev_seq = canonical_events(t_seq.events)
+    assert len(ev_seq) > 0 and ev_seq == canonical_events(t_dev.events), \
+        "device trace differs from the sequential engine's"
+    log(f"[device parity] (c) emit_trace: {len(ev_seq)} canonical events "
+        f"equal to the sequential engine's")
+    return {"agent_compared": n_cmp, "agent_decisions": len(dev_actions)}
+
+
+def phase_device_main(agent) -> dict:
+    """Greedy rollouts of the paper-width agent over 64 full-scale S1
+    traces: the device engine's main path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.fused_mlp import fused_mlp
+    from repro_torch.kernels.window_pack import pack_window
+    from repro_torch.sim import DeviceSimulator
+
+    traces = [s1_trace(seed) for seed in range(1, DEVICE_ENVS + 1)]
+    res = traces[0][0]
+    t0 = time.perf_counter()
+    sim = DeviceSimulator(res, [j for _, j in traces], agent)
+    pack_s = time.perf_counter() - t0
+    lay = sim.layout
+    sim.rollout()                                    # warm-up
+    walls, launches = [], None
+    for rep in range(3):
+        torch.cuda.synchronize()
+        if rep == 0:
+            pack_window.launches = fused_mlp.launches = 0
+        t0 = time.perf_counter()
+        ro = sim.rollout()
+        walls.append(time.perf_counter() - t0)
+        if rep == 0:
+            launches = {"window_pack": pack_window.launches,
+                        "fused_mlp": fused_mlp.launches}
+    st = ro.stats
+    assert launches["window_pack"] == st.rounds > 0, (launches, st)
+    assert launches["fused_mlp"] == 13 * st.rounds, (launches, st)
+    results = ro.results
+    for r in results:
+        row = r.metrics.as_row()
+        assert r.decisions > 0 and r.n_unstarted == 0, (r.decisions,
+                                                        r.n_unstarted)
+        assert all(math.isfinite(v) for v in row.values()), row
+    wall = statistics.median(walls)
+    out = {"envs": lay.n_envs, "jobs": lay.n_jobs, "units": lay.n_units,
+           "rounds_run": st.rounds_run, "deciding_rounds": st.rounds,
+           "decisions": st.decisions, "wall_s": wall, "walls_s": walls,
+           "dps": st.decisions / wall, "rps": st.rounds_run / wall,
+           "syncs_per_round": st.host_syncs / st.rounds_run,
+           "launches": launches, "pack_s": pack_s}
+    log(f"[device] N={lay.n_envs} environments, J={lay.n_jobs} jobs, "
+        f"U={lay.n_units} units, state_dim {lay.state_dim}; packed in "
+        f"{pack_s:.3f} s; round budget {lay.rounds}")
+    log(f"[device] greedy rollout (median of 3, {', '.join(f'{w:.3f}' for w in walls)} s): "
+        f"{st.rounds_run} rounds ({st.rounds} deciding), {st.decisions} "
+        f"decisions in {wall:.3f} s = {out['dps']:.1f} decisions/s, "
+        f"{out['rps']:.1f} rounds/s; host syncs {st.host_syncs} = "
+        f"{out['syncs_per_round']:.3f} per round")
+    log(f"[device] launches in one rollout: window_pack "
+        f"{launches['window_pack']} = deciding rounds, fused_mlp "
+        f"{launches['fused_mlp']} = 13 x {st.rounds}")
+    log(f"[device] env 0 ScheduleMetrics "
+        f"{json.dumps(results[0].metrics.as_row())}")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sim.rollout()
+    events = [e for e in prof.key_averages() if not e.is_user_annotation]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    out["device_busy_ms"] = busy_ms
+    out["device_busy_share"] = busy_ms / (wall * 1e3)
+    # Device operations (kernels, copies, fills) the host issued: what
+    # each round costs the host to launch.
+    issued = sum(e.count for e in events if e.device_type == DeviceType.CUDA)
+    out["device_ops_per_round"] = issued / sim.stats.rounds_run
+    log(f"[device] device kernels (torch.profiler, one more rollout) "
+        f"{busy_ms:.3f} ms = busy share {out['device_busy_share']:.4f} of "
+        f"the median rollout's wall time; {issued} device operations "
+        f"issued = {out['device_ops_per_round']:.1f} per round")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"[device]   {e.self_device_time_total / 1e3:9.3f} ms "
+            f"x{e.count:6d}  {e.key[:90]}")
+
+    # Collection mode: epsilon-greedy with the decision rows kept.
+    t0 = time.perf_counter()
+    ro = sim.rollout(eps=0.1, seed=0, collect=True)
+    collect_s = time.perf_counter() - t0
+    assert all(r.n_unstarted == 0 for r in ro.results)
+    width = lay.state_dim + 2 * lay.n_resources + lay.window
+    n_rows = 0
+    for t, i, row, a in ro.transitions():
+        assert row.shape == (width,) and 0 <= a < lay.window
+        n_rows += 1
+    assert n_rows == ro.stats.decisions > 0, (n_rows, ro.stats)
+    log(f"[device] collection rollout (eps 0.1): every job of every "
+        f"environment scheduled; {n_rows} transitions of width {width} in "
+        f"{collect_s:.3f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -478,31 +807,44 @@ def main() -> int:
     from repro_torch.workloads import ThetaConfig
 
     t_start = time.perf_counter()
-    card = phase_env()
-    phase_build()
-    worst_f32 = phase_parity()
+    card = timed("environment", phase_env)
+    timed("build", phase_build)
+    worst_f32 = timed("fused_mlp parity", phase_parity)
+    timed("window_pack parity", phase_window_pack_parity)
     agent = MRSchAgent(ThetaConfig().resources(), AgentConfig(seed=0))
     n_params = count_params(agent.net)
     log(f"[agent] paper width: state_dim {agent.enc.state_dim}, "
         f"{n_params} parameters ({4 * n_params / 1e6:.1f} MB float32), "
         f"backend {agent.dfp.backend}")
-    timing = phase_timing(agent)
-    main_path = phase_main_path(agent)
-    phase_breakdown(agent)
+    timing = timed("fused_mlp timing", phase_timing, agent)
+    wp_timing = timed("window_pack timing", phase_window_pack_timing)
+    service = timed("service path", phase_main_path, agent)
+    timed("service breakdown", phase_breakdown, agent)
+    timed("device-engine parity", phase_device_parity, agent)
+    device = timed("device-engine path", phase_device_main, agent)
     t_k, t_p, t_l, bnd, by = timing["sums"][16]
+    w_k, w_p, w_b, w_by = wp_timing[WP_TIMING[0]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     kernels = {"kernels": [{
         "name": "fused_mlp_forward", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": main_path["launches"], "max_abs_err": worst_f32,
+        "launches": service["launches"] + device["launches"]["fused_mlp"],
+        "max_abs_err": worst_f32,
         "ms": t_k, "plain_ms": t_p, "bound_ms": bnd, "bound_by": by,
         "library_ms": t_l,
+    }, {
+        "name": "window_pack", "route": "cuda",
+        "source": WP_SOURCE, "replaces": WP_REPLACES,
+        "launches": device["launches"]["window_pack"], "max_abs_err": 0.0,
+        "ms": w_k, "plain_ms": w_p, "bound_ms": w_b, "bound_by": w_by,
+        "library_ms": None,
     }]}
     print(card)
     print(json.dumps(kernels))
+    # The run uses one card, whatever else the host has.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

@@ -2,7 +2,9 @@
 
 Wraps the DFP network with the vector state encoding and the Eq. (1)
 dynamic goal vector, and implements the simulator's ``SchedulingPolicy``
-protocol with greedy decisions.  Exploration, the replay buffer and Adam
+protocol with greedy decisions, and the device stages of the ``Policy``
+protocol (``init_state``/``score_window``) that the device rollout
+engine scores with.  Exploration, the replay buffer and Adam
 training are not ported yet.  ``save``/``load`` read and write the JAX
 package's ``.npz`` format, so a file saved by either package loads in the
 other.
@@ -82,6 +84,28 @@ class MRSchAgent:
         the weights are the same on both."""
         self.dfp = replace(self.dfp, backend=resolve_backend(backend))
         self.config = replace(self.config, backend=backend)
+
+    # ------------------------------------------------------ Policy protocol
+    # Device-side stages (repro_torch.core.policy_api): the device rollout
+    # engine calls ``score_window`` on rows it builds on the card; the
+    # host stages below (``select`` / ``select_batch``) are unchanged.
+    requires_obs = True
+
+    def init_state(self) -> DFPNetwork:
+        """Policy state for the device rollout: the network."""
+        return self.net
+
+    def score_window(self, net: DFPNetwork, obs: torch.Tensor) -> torch.Tensor:
+        """Action values from packed decision rows (reference:
+        ``MRSchAgent.score_window``).
+
+        ``obs`` rows follow ``encoding.encode_decision_row``; the valid
+        mask is applied by the engine, not here.
+        """
+        sd, m = self.enc.state_dim, self.enc.n_resources
+        return action_values(net, self.dfp, obs[:, :sd].contiguous(),
+                             obs[:, sd:sd + m].contiguous(),
+                             obs[:, sd + m:sd + 2 * m].contiguous())
 
     # ---------------------------------------------------------------- policy
     def _tensor(self, a: np.ndarray) -> torch.Tensor:

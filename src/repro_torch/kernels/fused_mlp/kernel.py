@@ -1,33 +1,22 @@
 """Build, load and launch the fused dense-layer CUDA kernel
 (``csrc/fused_mlp.cu``, compiled for ``sm_90a``).
 
-The library is built at first use with ``nvcc`` into
-``build/repro_torch_kernels/`` at the root of the checkout, under a name
-keyed by a hash of the source and the flags, so a changed source is
-rebuilt and an unchanged one is loaded as it is.  It has a plain C
-interface and is bound with ``ctypes``; nothing here runs when the
-module is imported.
+The library is built at first use with ``nvcc`` by the shared scheme of
+``kernels/_build.py`` (keyed by a hash of the source and the flags) and
+bound with ``ctypes``; nothing here runs when the module is imported.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import subprocess
-import threading
-import time
-from dataclasses import dataclass
 from pathlib import Path
 
 import torch
 
+from .._build import BuildInfo, build_library, check_launch, load_library
 from .ref import ACTIVATIONS
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_mlp.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -38,57 +27,18 @@ MIN_SPLIT_ROWS = 64     # a K split shorter than this costs more than it hides
 BLOCKS_PER_SM = 4       # blocks the split aims to put in flight per SM
 
 
-@dataclass(frozen=True)
-class BuildInfo:
-    library: Path
-    seconds: float      # time spent compiling; 0.0 when loaded as built
-    log: str            # nvcc's output (ptxas register and spill report)
-
-
-_build_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("fused_mlp: no CUDA toolkit found (CUDA_HOME is "
-                           "unset and nvcc is not on PATH)")
-    return str(Path(CUDA_HOME) / "bin" / "nvcc")
-
-
 def build() -> BuildInfo:
     """Compile the kernel library if this source has not been built yet."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"fused_mlp-{key}.so"
-    log = lib.with_suffix(".log")
-    with _build_lock:
-        if lib.exists():
-            return BuildInfo(lib, 0.0, log.read_text() if log.exists() else "")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"fused_mlp: nvcc failed ({proc.returncode}):"
-                               f"\n{proc.stdout}\n{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)        # atomic: a concurrent loader sees all or nothing
-        return BuildInfo(lib, seconds, proc.stdout + proc.stderr)
+    return build_library("fused_mlp", SOURCE)
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build().library))
+    lib = load_library(build())
     fn = lib.mrsch_fused_mlp_forward
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.mrsch_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.mrsch_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -133,8 +83,5 @@ def fused_mlp_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             partial.data_ptr() if partial is not None else None,
             m, k, n, splits, chunk, vec, ACTIVATIONS.index(activation),
             float(slope), DTYPES[x.dtype], stream)
-    if err != 0:
-        msg = lib.mrsch_cuda_error_string(err).decode()
-        raise RuntimeError(f"fused_mlp: kernel launch failed: {msg} ({err}) "
-                           f"at M={m} K={k} N={n} splits={splits}")
+    check_launch(lib, "fused_mlp", err, f"M={m} K={k} N={n} splits={splits}")
     return y

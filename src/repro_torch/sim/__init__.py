@@ -1,4 +1,6 @@
 from .cluster import TTF_HORIZON, Cluster, ResourceSpec
+from .device import (DeviceRollout, DeviceSimulator, DeviceStats,
+                     run_traces_device)
 from .job import Job
 from .lifecycle import (DEFAULT_MAX_REQUEUES, ELIGIBLE, FAILED, FINISHED,
                         HELD, QUEUED, RUNNING, STATE_NAMES, DrainEvent,
@@ -12,6 +14,7 @@ __all__ = [
     "TTF_HORIZON", "Cluster", "ResourceSpec", "Job", "MetricsAccumulator",
     "ScheduleMetrics", "ENGINES", "SchedContext", "SimConfig", "SimResult",
     "Simulator", "run_trace",
+    "DeviceRollout", "DeviceSimulator", "DeviceStats", "run_traces_device",
     "HELD", "ELIGIBLE", "QUEUED", "RUNNING", "FINISHED", "FAILED",
     "STATE_NAMES", "DEFAULT_MAX_REQUEUES", "DrainEvent", "FaultSchedule",
     "JobLifecycle", "cascade_failures", "pipeline_makespan",

@@ -15,16 +15,20 @@ One explicit state machine::
 - FAILED:   terminal failure — a killed attempt past the requeue bound,
   or (at result time) a cascade from a FAILED ancestor.
 
-The *transition logic* lives here and only here: the sequential
-:class:`~repro_torch.sim.simulator.Simulator` calls the host methods on
-:class:`JobLifecycle` per event.  (The JAX package's device engine folds
-pure-array twins of these transitions into its event pump; this package
-has no device engine yet.)
+The *transition logic* lives here and only here:
+
+- the sequential :class:`~repro_torch.sim.simulator.Simulator` calls the
+  host methods on :class:`JobLifecycle` per event;
+- the device engine (:mod:`repro_torch.sim.device`) folds the
+  ``device_*`` tensor functions below into its round loop over masked
+  fixed-capacity arrays.
 
 Queue ordering is part of the contract: the waiting queue is kept sorted
 by ``(original submit, jid)`` (:func:`queue_key`).  For dependency-free
 traces this equals arrival order, so historic schedules are unchanged;
-for requeued or dependency-released jobs it pins one deterministic order.
+for requeued or dependency-released jobs it pins one deterministic order
+that the packed device engine reproduces by construction (jobs are
+packed sorted by the same key).
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .cluster import Cluster
 from .job import Job
@@ -45,6 +50,10 @@ STATE_NAMES = ("HELD", "ELIGIBLE", "QUEUED", "RUNNING", "FINISHED", "FAILED")
 DEFAULT_MAX_REQUEUES = 3
 
 INF = float("inf")
+
+#: Owner id of drained (phantom-reserved) units in the device engine's
+#: packed owner array; real jobs are >= 0 and free units are -1.
+PHANTOM_OWNER = -2
 
 
 # --------------------------------------------------------------------------
@@ -356,3 +365,167 @@ def work_summary(jobs: Sequence[Job], primary: str) -> Tuple[float, float]:
                     for j in jobs if j.state == FINISHED)
     failed = sum(j.failed_work for j in jobs)
     return float(completed), float(failed)
+
+
+# --------------------------------------------------------------------------
+# Device-side transitions (folded into the device engine's round loop)
+# --------------------------------------------------------------------------
+# Shapes: N envs, J jobs, P max parents, A max attempts, D drains, U total
+# resource units (concatenated segments).  Counterparts of the JAX
+# package's ``device_*`` functions in ``repro/sim/lifecycle.py``, on torch
+# tensors of one device; the functions that take the state dict ``st``
+# replace its entries and return it.  The zero-size fast paths (P == 0,
+# A == 0, D == 0) are Python branches, as in the reference.
+
+def device_ready(submit, deps_idx, think, end_t, finished):
+    """Earliest queue-entry time per job: ``max(submit, max_parent(end) +
+    think)`` while all present parents are finished, else ``+inf``
+    (reference: ``device_ready``)."""
+    n, j, p = deps_idx.shape
+    if p == 0:
+        return submit
+    flat = deps_idx.clamp(0, j - 1).reshape(n, j * p).long()
+    has = deps_idx >= 0
+    pfin = torch.gather(finished, 1, flat).reshape(n, j, p) & has
+    pend = torch.gather(end_t, 1, flat).reshape(n, j, p)
+    all_done = torch.where(has, pfin, True).all(dim=2)
+    pmax = torch.where(pfin, pend, -torch.inf).amax(dim=2)
+    ready = torch.maximum(submit, pmax + think)
+    return torch.where(all_done, ready, torch.inf)
+
+
+def device_queued(ready, now, started, finished, failed):
+    """QUEUED mask: eligible by ``now`` and not in any other live state
+    (reference: ``device_queued``)."""
+    return (ready <= now[:, None]) & ~started & ~finished & ~failed
+
+
+def device_attempt(fail_times, requeues, runtime):
+    """(duration, will_fail) of each job's NEXT attempt (reference:
+    ``device_attempt``)."""
+    if fail_times.shape[2] == 0:
+        return runtime, torch.zeros(runtime.shape, dtype=torch.bool,
+                                    device=runtime.device)
+    a = fail_times.shape[2]
+    k = requeues.clamp(0, a - 1)[..., None].long()
+    ft = torch.gather(fail_times, 2, k)[..., 0]
+    ft = torch.where(requeues < a, ft, torch.inf)
+    will_fail = ft < runtime
+    return torch.where(will_fail, ft, runtime), will_fail
+
+
+def device_free_units(mask_j, release, owner):
+    """Free every unit owned by a job in ``mask_j`` (N, J) (reference:
+    ``device_free_units``).  Free (-1) and phantom (-2) owners gather job
+    0 and are masked out afterwards."""
+    hit = torch.gather(mask_j, 1, owner.clamp_min(0).long()) & (owner >= 0)
+    return torch.where(hit, 0.0, release), torch.where(hit, -1, owner)
+
+
+def device_kill(killed, now, demands, node_idx, max_requeues, st):
+    """Kill RUNNING attempts in ``killed`` (N, J): free their units,
+    charge the lost work, and either requeue (original queue position —
+    ordering is by packed job index) or mark FAILED past the bound
+    (reference: ``device_kill``)."""
+    # where() not arithmetic masking: ``now`` is +inf for envs with no
+    # event this round, and inf * 0.0 would poison the area with NaN.
+    run_t = torch.where(killed, (now[:, None] - st["start"]).clamp_min(0.0),
+                        0.0)
+    work = demands * run_t[..., None]                      # (N, J, R)
+    st["failed_area"] = st["failed_area"] + work.sum(dim=1)
+    st["failed_work"] = st["failed_work"] + work[..., node_idx]
+    st["release"], st["owner"] = device_free_units(
+        killed, st["release"], st["owner"])
+    st["requeues"] = st["requeues"] + killed.to(st["requeues"].dtype)
+    st["failed"] = st["failed"] | (killed & (st["requeues"] > max_requeues))
+    st["started"] = st["started"] & ~killed
+    st["start"] = torch.where(killed, -1.0, st["start"])
+    st["end"] = torch.where(killed, torch.inf, st["end"])
+    st["cur_fail"] = st["cur_fail"] & ~killed
+    return st
+
+
+def device_apply_ends(t, act, demands, node_idx, max_requeues, st,
+                      has_kills=True):
+    """Apply every attempt-end scheduled at ``t``: clean finishes release
+    units and go FINISHED; failure points are killed/requeued.
+    ``has_kills=False`` skips the kill path for traces with no failure
+    points and no drains (reference: ``device_apply_ends``)."""
+    running = st["started"] & ~st["finished"]
+    due = running & (st["end"] == t[:, None]) & act[:, None]
+    fin = due & ~st["cur_fail"] if has_kills else due
+    st["finished"] = st["finished"] | fin
+    st["release"], st["owner"] = device_free_units(
+        fin, st["release"], st["owner"])
+    if has_kills:
+        st = device_kill(due & st["cur_fail"], t, demands, node_idx,
+                         max_requeues, st)
+    return st
+
+
+def _drain_range(faults, d):
+    return ((faults.unit_seg[None, :] == faults.drain_res[:, d:d + 1])
+            & (faults.unit_local[None, :] < faults.drain_units[:, d:d + 1]))
+
+
+def device_apply_drains(t, act, faults, demands, node_idx, st):
+    """Fire drains scheduled at ``t``: kill residents of the unit range,
+    then phantom-reserve it (owner = PHANTOM_OWNER) until restore
+    (reference: ``device_apply_drains``)."""
+    n, u = st["release"].shape
+    jmax = st["started"].shape[1]
+    for d in range(faults.drain_t.shape[1]):
+        fire = act & (faults.drain_t[:, d] == t) & ~st["drain_done"][:, d]
+        in_range = _drain_range(faults, d)
+        kill_u = fire[:, None] & in_range & (st["owner"] >= 0)
+        # A job owning several units of the range is hit once per unit:
+        # amax makes the duplicates OR, never overwrite True with False.
+        killed = torch.zeros((n, jmax), dtype=torch.int32,
+                             device=kill_u.device).scatter_reduce(
+            1, st["owner"].clamp_min(0).long(), kill_u.to(torch.int32),
+            "amax").bool()
+        st = device_kill(killed, t, demands, node_idx,
+                         faults.max_requeues, st)
+        phantom = fire[:, None] & in_range
+        st["release"] = torch.where(phantom, faults.restore_t[:, d:d + 1],
+                                    st["release"])
+        st["owner"] = torch.where(phantom, PHANTOM_OWNER, st["owner"])
+        done = st["drain_done"].clone()
+        done[:, d] |= fire
+        st["drain_done"] = done
+    return st
+
+
+def device_apply_restores(t, act, faults, st):
+    """Return phantom units of elapsed drains to the free pool (reference:
+    ``device_apply_restores``)."""
+    for d in range(faults.drain_t.shape[1]):
+        fire = act & (faults.restore_t[:, d] == t) \
+            & st["drain_done"][:, d] & ~st["restore_done"][:, d]
+        clear = (fire[:, None] & _drain_range(faults, d)
+                 & (st["owner"] == PHANTOM_OWNER))
+        st["release"] = torch.where(clear, 0.0, st["release"])
+        st["owner"] = torch.where(clear, -1, st["owner"])
+        done = st["restore_done"].clone()
+        done[:, d] |= fire
+        st["restore_done"] = done
+    return st
+
+
+def device_next_event(now, ready, end_t, started, finished, failed, faults,
+                      st):
+    """Next event time per env: min over pending queue-entries, running
+    ends, un-fired drains and un-fired restores (inf when drained)
+    (reference: ``device_next_event``)."""
+    pending = ~started & ~finished & ~failed & (ready > now[:, None])
+    nxt = torch.where(pending, ready, torch.inf).amin(dim=1)
+    running = started & ~finished
+    nxt = torch.minimum(nxt, torch.where(running, end_t,
+                                         torch.inf).amin(dim=1))
+    if faults is not None and faults.drain_t.shape[1]:
+        nxt = torch.minimum(nxt, torch.where(
+            ~st["drain_done"], faults.drain_t, torch.inf).amin(dim=1))
+        nxt = torch.minimum(nxt, torch.where(
+            st["drain_done"] & ~st["restore_done"], faults.restore_t,
+            torch.inf).amin(dim=1))
+    return nxt

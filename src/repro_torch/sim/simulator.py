@@ -63,9 +63,8 @@ class SchedulingPolicy(Protocol):
     def notify_reserved(self, job: Job, ctx: SchedContext) -> None: ...
 
 
-# The engines this package has so far; the JAX package also has
-# "vector" and "device".
-ENGINES = ("sequential",)
+# The engines this package has so far; the JAX package also has "vector".
+ENGINES = ("sequential", "device")
 
 # Application order for events coalesced at one timestamp.  Ends first
 # (a job finishing at t is NOT killed by a drain at t), then queue
@@ -78,17 +77,21 @@ class SimConfig:
     window: int = 10             # W, paper §III-C / §IV-C
     backfill: bool = True        # EASY backfilling
     max_events: int = 50_000_000
-    engine: str = "sequential"
+    engine: str = "sequential"   # "sequential" | "device"
+    max_rounds: Optional[int] = None   # device engine round-budget override
 
     @classmethod
     def for_engine(cls, engine: str = "sequential", *, window: int = 10,
-                   backfill: bool = True,
-                   max_events: Optional[int] = None) -> "SimConfig":
+                   backfill: bool = True, max_events: Optional[int] = None,
+                   max_rounds: Optional[int] = None) -> "SimConfig":
         """The single validated constructor path.
 
         Every harness that builds a simulator (``run_trace``,
-        service-routed replay) builds its ``SimConfig`` here, so
-        validation lands everywhere at once.
+        service-routed replay, the device rollout) builds its
+        ``SimConfig`` here, so validation lands everywhere at once.
+        ``max_rounds`` bounds the device engine's round loop (it raises
+        if the budget proves too small rather than silently truncating);
+        the sequential engine ignores it.
         """
         if engine not in ENGINES:
             raise ValueError(
@@ -101,6 +104,10 @@ class SimConfig:
             if int(max_events) < 1:
                 raise ValueError(f"max_events must be >= 1, got {max_events}")
             cfg.max_events = int(max_events)
+        if max_rounds is not None:
+            if int(max_rounds) < 1:
+                raise ValueError(f"max_rounds must be >= 1, got {max_rounds}")
+            cfg.max_rounds = int(max_rounds)
         return cfg
 
 

@@ -134,3 +134,24 @@ def values_and_margin(agent, rows: np.ndarray):
     u = torch.where(x[:, sd + 2 * m:] > 0.5, u, -torch.inf).numpy()
     top2 = np.sort(u, axis=1)[:, -2:]
     return u, top2[:, 1] - top2[:, 0]
+
+
+def env_actions(ro, i):
+    """The actions one environment of a device rollout took, in order."""
+    return [int(a) for a, d in zip(ro.actions[:, i], ro.decided[:, i]) if d]
+
+
+def assert_results_close(a, b, rtol=1e-5, atol=1e-2):
+    """tests/test_device.py's rule: host (f64) vs device (f32 clock)
+    results — same schedule, metrics equal to float32 precision."""
+    assert a.decisions == b.decisions
+    assert a.n_unstarted == b.n_unstarted
+    ra, rb = a.metrics.as_row(), b.metrics.as_row()
+    assert set(ra) == set(rb)
+    for k in ra:
+        assert np.isclose(ra[k], rb[k], rtol=rtol, atol=atol), \
+            (k, ra[k], rb[k])
+    for ja, jb in zip(a.jobs, b.jobs):
+        assert ja.jid == jb.jid and ja.started == jb.started
+        if ja.started:
+            assert np.isclose(ja.start, jb.start, rtol=1e-6, atol=1e-2)

@@ -112,3 +112,73 @@ def test_service_on_the_card_matches_plain_backend(cuda):
         u[np.isfinite(u)]).max())
     assert decisive.sum() > len(rows) // 2
     assert (np.asarray(served)[decisive] == u.argmax(1)[decisive]).all()
+
+
+# ------------------------------------------------------------ window pack
+@pytest.mark.parametrize("n,j,f,w", [(1, 40, 4, 10), (3, 50, 7, 10),
+                                     (64, 330, 4, 10), (8, 1000, 4, 64),
+                                     (2, 1, 4, 10), (5, 33, 3, 10)])
+@pytest.mark.parametrize("density", [0.0, 0.05, 0.4, 1.0])
+def test_window_pack_kernel_matches_plain_version(cuda, n, j, f, w, density):
+    from repro_torch.kernels.window_pack import (pack_window,
+                                                 pack_window_reference)
+    rng = np.random.default_rng(n * j + f)
+    waiting = torch.from_numpy(
+        (rng.uniform(size=(n, j)) < density).astype(np.float32)).to(cuda)
+    feats = torch.from_numpy(
+        rng.standard_normal((n, j, f)).astype(np.float32)).to(cuda)
+    launches = pack_window.launches
+    out = pack_window(waiting, feats, window=w)
+    ref = pack_window_reference(waiting, feats, window=w)
+    torch.cuda.synchronize()
+    assert pack_window.launches == launches + 1
+    for a, b in zip(out, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_window_pack_rejects_and_never_falls_back(cuda):
+    from repro_torch.kernels.window_pack import pack_window
+    waiting = torch.ones(2, 8, device=cuda)
+    feats = torch.ones(2, 8, 4, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        pack_window(waiting, feats.transpose(0, 1).contiguous()
+                    .transpose(0, 1), window=4)
+    with pytest.raises(ValueError, match="different devices"):
+        pack_window(waiting, feats.cpu(), window=4)
+    with pytest.raises(TypeError, match="float32"):
+        pack_window(waiting.double(), feats.double(), window=4)
+
+
+# ------------------------------------------------------------ device engine
+def test_device_rollout_on_the_card_matches_plain_backend(cuda):
+    """A small agent's device rollout on the card: the kernel backend
+    decides as the plain backend does, with one window pack and 13 dense
+    launches per deciding round."""
+    from repro_torch.core import AgentConfig, MRSchAgent
+    from repro_torch.kernels.window_pack import pack_window
+    from repro_torch.sim import DeviceSimulator, Job, ResourceSpec
+    res = [ResourceSpec("node", 16), ResourceSpec("bb", 8)]
+    agent = MRSchAgent(res, AgentConfig(state_hidden=(64, 32), state_out=16,
+                                        module_hidden=8))
+    rng = np.random.default_rng(1)
+    jobsets = []
+    for n in (30, 45, 60):
+        jobs, t = [], 0.0
+        for i in range(n):
+            t += float(rng.exponential(30.0))
+            rt = float(rng.uniform(20, 300))
+            jobs.append(Job(i, t, rt, rt * 1.5,
+                            {"node": int(rng.integers(1, 12)),
+                             "bb": int(rng.integers(0, 6))}))
+        jobsets.append(jobs)
+    sim = DeviceSimulator(res, jobsets, agent)
+    pack_window.launches = fused_mlp.launches = 0
+    ro_k = sim.rollout()
+    assert pack_window.launches == ro_k.stats.rounds > 0
+    assert fused_mlp.launches == 13 * ro_k.stats.rounds
+    agent.set_backend("torch")
+    ro_t = sim.rollout()
+    np.testing.assert_array_equal(ro_k.actions, ro_t.actions)
+    for a, b in zip(ro_k.results, ro_t.results):
+        assert a.metrics.as_row() == b.metrics.as_row()
+        assert a.n_unstarted == 0

@@ -67,6 +67,6 @@ def test_sim_config_validation():
     with pytest.raises(ValueError, match="max_events"):
         SimConfig.for_engine(max_events=0)
     with pytest.raises(ValueError, match="engine"):
-        SimConfig.for_engine("device")
+        SimConfig.for_engine("vector")          # not ported yet
     cfg = SimConfig.for_engine(window=5, backfill=False, max_events=10)
     assert (cfg.window, cfg.backfill, cfg.max_events) == (5, False, 10)
