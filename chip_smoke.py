@@ -76,13 +76,14 @@ KERNEL_REPLACES = "src/repro/kernels/fused_mlp/kernel.py:85"
 WP_SOURCE = "src/repro_torch/kernels/window_pack/csrc/window_pack.cu"
 WP_REPLACES = "src/repro/kernels/window_pack/kernel.py:37"
 
-# Window-pack shapes (N, J, F, W): the device engine's main path is N = 64
-# environments, J ~ 330 jobs, F = R + 2 = 4 features, W = 10.
+# Synthetic window-pack shapes (N, J, F, W).  The device engine's main path
+# runs N = 64 environments, J = 358 jobs, F = R + 2 = 4 features, W = 10;
+# phase_window_pack_main_path checks and times the kernel on its own inputs.
 WP_PARITY = [(1, 40, 4, 10), (3, 50, 7, 10), (64, 330, 4, 10),
              (512, 2048, 4, 10), (8, 1000, 4, 64), (5, 33, 3, 10),
              (2, 1, 4, 10)]
 WP_DENSITIES = (0.0, 0.05, 0.4, 1.0)
-WP_TIMING = [(64, 330, 4, 10), (512, 2048, 4, 10)]
+WP_TIMING = [(64, 358, 4, 10), (512, 2048, 4, 10)]
 DEVICE_ENVS = 64                 # environments of the device-engine path
 
 
@@ -182,28 +183,38 @@ def wp_inputs(n: int, j: int, f: int, density: float, gen) -> tuple:
     return waiting, feats
 
 
-def phase_window_pack_parity() -> int:
-    """Kernel vs plain version on the card, bit for bit."""
+def wp_check(waiting, feats, w: int, what: str) -> float:
+    """Kernel vs plain version on one input, bit for bit; returns the
+    largest absolute difference over the three outputs (0.0 when equal)."""
     from repro_torch.kernels.window_pack import (pack_window,
                                                  pack_window_reference)
+    out = pack_window(waiting, feats, window=w)
+    ref = pack_window_reference(waiting, feats, window=w)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in zip(("win_feats", "win_idx", "win_valid"), out, ref):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"[window_pack parity] {what}: {name} "
+                                 f"differs")
+        err = max(err, float((a.float() - b.float()).abs().max()))
+    return err
+
+
+def phase_window_pack_parity() -> float:
+    """Kernel vs plain version on the card, bit for bit, at synthetic
+    shapes; returns the largest absolute difference."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    cases = 0
+    cases, err = 0, 0.0
     for n, j, f, w in WP_PARITY:
         for density in WP_DENSITIES:
             waiting, feats = wp_inputs(n, j, f, density, gen)
-            out = pack_window(waiting, feats, window=w)
-            ref = pack_window_reference(waiting, feats, window=w)
-            torch.cuda.synchronize()
-            for name, a, b in zip(("win_feats", "win_idx", "win_valid"),
-                                  out, ref):
-                if a.dtype != b.dtype or not torch.equal(a, b):
-                    raise AssertionError(
-                        f"[window_pack parity] N={n} J={j} F={f} W={w} "
-                        f"density={density}: {name} differs")
+            err = max(err, wp_check(waiting, feats, w,
+                                    f"N={n} J={j} F={f} W={w} "
+                                    f"density={density}"))
             cases += 1
     log(f"[window_pack parity] {cases} cases bit-identical (torch.equal on "
-        f"features, indices and validity)")
-    return cases
+        f"features, indices and validity); max abs err {err!r}")
+    return err
 
 
 def wp_bound(waiting: torch.Tensor, f: int, w: int) -> tuple:
@@ -224,25 +235,69 @@ def wp_bound(waiting: torch.Tensor, f: int, w: int) -> tuple:
             read / PEAK_F32_FLOP_PER_S * 1e3)
 
 
-def phase_window_pack_timing() -> dict:
+def phase_window_pack_timing() -> None:
     from repro_torch.kernels.window_pack import (pack_window,
                                                  pack_window_reference)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(3)
-    out = {}
     for n, j, f, w in WP_TIMING:
         waiting, feats = wp_inputs(n, j, f, 0.4, gen)
         t_k = device_ms(lambda: pack_window(waiting, feats, window=w), flush)
         t_p = device_ms(lambda: pack_window_reference(waiting, feats,
                                                       window=w), flush)
         b_ms, o_ms = wp_bound(waiting, f, w)
-        out[(n, j, f, w)] = (t_k, t_p, max(b_ms, o_ms),
-                             "bytes" if b_ms >= o_ms else "operations")
+        by = "bytes" if b_ms >= o_ms else "operations"
         log(f"[window_pack timing] N={n} J={j} F={f} W={w} (density 0.4): "
             f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  bound "
-            f"{max(b_ms, o_ms):.6f} ms ({out[(n, j, f, w)][3]}); no single "
-            f"PyTorch call computes it")
-    return out
+            f"{max(b_ms, o_ms):.6f} ms ({by}); no single PyTorch call "
+            f"computes it")
+
+
+def phase_window_pack_main_path(sim) -> dict:
+    """``window_pack`` on the inputs the device engine's main path gives
+    it: one more greedy rollout records every round's (waiting, feats);
+    each round is held against the plain version bit for bit, and the
+    round with the median number of waiting jobs is timed.  The launches
+    made here are not counted: the main path's count was read before."""
+    from repro_torch.kernels.window_pack import (pack_window,
+                                                 pack_window_reference)
+    from repro_torch.sim import device as device_mod
+    calls = []
+
+    def recording(waiting, feats, *, window):
+        calls.append((waiting.clone(), feats, window))
+        return pack_window(waiting, feats, window=window)
+
+    device_mod.pack_window = recording
+    try:
+        sim.rollout()
+    finally:
+        device_mod.pack_window = pack_window
+    lay = sim.layout
+    assert len(calls) == sim.stats.rounds > 0, (len(calls), sim.stats)
+    err = 0.0
+    for t, (waiting, feats, w) in enumerate(calls):
+        err = max(err, wp_check(waiting, feats, w, f"main path round {t}"))
+    n_wait = torch.stack([c[0].sum() for c in calls]).cpu()
+    t_med = int(torch.argsort(n_wait)[len(calls) // 2])
+    waiting, feats, w = calls[t_med]
+    n, j, f = feats.shape
+    assert (n, j, f, w) == (lay.n_envs, lay.n_jobs, lay.n_resources + 2,
+                            lay.window), ((n, j, f, w), lay)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    t_k = device_ms(lambda: pack_window(waiting, feats, window=w), flush)
+    t_p = device_ms(lambda: pack_window_reference(waiting, feats, window=w),
+                    flush)
+    b_ms, o_ms = wp_bound(waiting, f, w)
+    by = "bytes" if b_ms >= o_ms else "operations"
+    log(f"[window_pack main path] {len(calls)} rounds at N={n} J={j} F={f} "
+        f"W={w} bit-identical to the plain version; max abs err {err!r}")
+    log(f"[window_pack main path] round {t_med} ({int(n_wait[t_med])} jobs "
+        f"waiting, the median): kernel {t_k:.4f} ms  plain {t_p:.4f} ms  "
+        f"bound {max(b_ms, o_ms):.6f} ms ({by})")
+    return {"shape": (n, j, f, w), "rounds": len(calls), "max_abs_err": err,
+            "ms": t_k, "plain_ms": t_p, "bound_ms": max(b_ms, o_ms),
+            "bound_by": by}
 
 
 def forward_layers(net) -> list:
@@ -794,7 +849,7 @@ def phase_device_main(agent) -> dict:
     log(f"[device] collection rollout (eps 0.1): every job of every "
         f"environment scheduled; {n_rows} transitions of width {width} in "
         f"{collect_s:.3f} s")
-    return out
+    return out, sim
 
 
 def main() -> int:
@@ -810,20 +865,21 @@ def main() -> int:
     card = timed("environment", phase_env)
     timed("build", phase_build)
     worst_f32 = timed("fused_mlp parity", phase_parity)
-    timed("window_pack parity", phase_window_pack_parity)
+    wp_err = timed("window_pack parity", phase_window_pack_parity)
     agent = MRSchAgent(ThetaConfig().resources(), AgentConfig(seed=0))
     n_params = count_params(agent.net)
     log(f"[agent] paper width: state_dim {agent.enc.state_dim}, "
         f"{n_params} parameters ({4 * n_params / 1e6:.1f} MB float32), "
         f"backend {agent.dfp.backend}")
     timing = timed("fused_mlp timing", phase_timing, agent)
-    wp_timing = timed("window_pack timing", phase_window_pack_timing)
+    timed("window_pack timing", phase_window_pack_timing)
     service = timed("service path", phase_main_path, agent)
     timed("service breakdown", phase_breakdown, agent)
     timed("device-engine parity", phase_device_parity, agent)
-    device = timed("device-engine path", phase_device_main, agent)
+    device, sim = timed("device-engine path", phase_device_main, agent)
+    wp_main = timed("window_pack on the main path",
+                    phase_window_pack_main_path, sim)
     t_k, t_p, t_l, bnd, by = timing["sums"][16]
-    w_k, w_p, w_b, w_by = wp_timing[WP_TIMING[0]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     kernels = {"kernels": [{
         "name": "fused_mlp_forward", "route": "cuda",
@@ -835,8 +891,10 @@ def main() -> int:
     }, {
         "name": "window_pack", "route": "cuda",
         "source": WP_SOURCE, "replaces": WP_REPLACES,
-        "launches": device["launches"]["window_pack"], "max_abs_err": 0.0,
-        "ms": w_k, "plain_ms": w_p, "bound_ms": w_b, "bound_by": w_by,
+        "launches": device["launches"]["window_pack"],
+        "max_abs_err": max(wp_err, wp_main["max_abs_err"]),
+        "ms": wp_main["ms"], "plain_ms": wp_main["plain_ms"],
+        "bound_ms": wp_main["bound_ms"], "bound_by": wp_main["bound_by"],
         "library_ms": None,
     }]}
     print(card)

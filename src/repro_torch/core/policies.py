@@ -13,12 +13,10 @@ class FCFSPolicy(WindowPolicy):
     """Head-of-queue list scheduling.
 
     Expressed through the ``Policy`` protocol as a static slot
-    preference: earlier window slots score higher, so the masked argmax
-    always lands on the head.  ``select`` keeps the trivial host fast
+    preference over the window-valid mask: earlier window slots score
+    higher, so the masked argmax always lands on the head.  ``select`` keeps the trivial host fast
     path (identical result, no tensor round trip per decision).
     """
-
-    requires_obs = False      # scores need only the window-valid mask
 
     def select(self, ctx: SchedContext) -> int:
         return 0

@@ -892,8 +892,9 @@ class DeviceSimulator:
                     obs[[t for t, _ in obs_rows]] = rows
         if not out["done"].all():
             raise RuntimeError(
-                f"device rollout exhausted its round budget "
-                f"({lay.rounds}); raise SimConfig.max_rounds")
+                f"device rollout exhausted its round budget of "
+                f"{lay.rounds} rounds (3J + 2 plus the fault rounds, "
+                f"capped by SimConfig.max_rounds)")
         decided = out["decided"]
         self.stats = DeviceStats(
             rounds=int(decided.any(axis=1).sum()),
