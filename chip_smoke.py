@@ -34,7 +34,23 @@ prints its wall seconds:
    paper-width agent over 64 full-scale S1 traces (warm-up, then the
    median of 3), with ``pack_window`` launched once and the fused MLP 13
    times per deciding round, a ``torch.profiler`` busy share, and one
-   epsilon-greedy collection rollout.
+   epsilon-greedy collection rollout;
+9. fused-MLP backward parity: the dgrad and wgrad kernels against their
+   plain versions at the 13 DFP layer shapes, M in {1, 16, 37, 64, 128},
+   all four activations, float32 (rtol 1e-3, atol 1e-4) and bfloat16
+   (2e-2);
+10. training path: a second paper-width agent (paper defaults: batch 64,
+   64 gradient steps per episode, lr 1e-4, clip 10) runs ``train_agent``
+   over three full-scale S1 traces; exactly 13 forward, 10 dgrad and 13
+   wgrad launches per train step, finite losses and norms, every
+   parameter moved; one step's loss and gradients on the kernel and the
+   plain backend; a greedy ``evaluate`` on both backends; step wall and
+   device time, a ``torch.profiler`` breakdown of one burst, collection
+   decisions/s; then the dgrad and wgrad held against their plain
+   versions and timed on the operands of one train step of the path,
+   each beside its bound, its plain version and ``torch.mm`` on the
+   act'-scaled gradient (the library yardstick, which the port never
+   calls).
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -73,6 +89,14 @@ TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
 KERNEL_SOURCE = "src/repro_torch/kernels/fused_mlp/csrc/fused_mlp.cu"
 KERNEL_REPLACES = "src/repro/kernels/fused_mlp/kernel.py:85"
+BWD_SOURCE = "src/repro_torch/kernels/fused_mlp/csrc/fused_mlp_bwd.cu"
+DGRAD_REPLACES = "src/repro/kernels/fused_mlp/kernel.py:135"
+WGRAD_REPLACES = "src/repro/kernels/fused_mlp/kernel.py:183"
+# The JAX package's gradient tolerance (tests/test_kernels.py:79), and
+# bfloat16's.
+BWD_TOL = {torch.float32: (1e-3, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+BWD_PARITY_M = (1, 16, 37, 64, 128)
+TRAIN_SEEDS = (1, 2, 3)          # full-scale S1 traces of the training path
 WP_SOURCE = "src/repro_torch/kernels/window_pack/csrc/window_pack.cu"
 WP_REPLACES = "src/repro/kernels/window_pack/kernel.py:37"
 
@@ -119,16 +143,17 @@ def timed(name: str, fn, *args):
 
 
 def phase_build() -> None:
-    """Both kernel libraries, one nvcc per source, started together."""
+    """The three kernel libraries, one nvcc per source, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.fused_mlp import kernel as fm
     from repro_torch.kernels.window_pack import kernel as wp
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        futures = [pool.submit(k.build) for k in (fm, wp)]
+    builds = (fm.build, fm.build_backward, wp.build)
+    with ThreadPoolExecutor(max_workers=len(builds)) as pool:
+        futures = [pool.submit(b) for b in builds]
         infos = [f.result() for f in futures]
-    for k in (fm, wp):
-        k._library()
+    for load in (fm._library, fm._backward_library, wp._library):
+        load()
     for info in infos:
         log(f"[build] {info.library.name}: {info.seconds:.3f} s of nvcc")
         for line in info.log.splitlines():
@@ -320,6 +345,16 @@ def bound_ms(m: int, k: int, n: int) -> tuple:
     byte_s = 4.0 * (m * k + k * n + n + m * n) / PEAK_BYTES_PER_S
     flop_s = 2.0 * m * k * n / PEAK_F32_FLOP_PER_S
     return byte_s * 1e3, flop_s * 1e3
+
+
+def device_events(prof) -> list:
+    """The profile's events that ran on the card (kernels, copies, fills),
+    averaged by name.  Only these are summed: an operator's own entry also
+    carries the device time of the kernels it launched, so summing every
+    entry counts those kernels twice."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
 
 
 def device_ms(fn, flush: torch.Tensor, reps: int = 15,
@@ -620,9 +655,7 @@ def phase_breakdown(agent, n_decisions: int = 300) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         steps()
-    # Device time of the kernels themselves: a record_function range also
-    # shows up as a device-side annotation spanning its kernels.
-    events = [e for e in prof.key_averages() if not e.is_user_annotation]
+    events = device_events(prof)
     kernel_ms = sum(e.self_device_time_total for e in events) / 1e3
     out = {"decisions": n, "wall_ms": wall * 1e3, "sim_ms": sim_ms,
            "encode_ms": enc_ms, "forward_ms": fwd_ms,
@@ -762,7 +795,6 @@ def phase_device_parity(agent) -> dict:
 def phase_device_main(agent) -> dict:
     """Greedy rollouts of the paper-width agent over 64 full-scale S1
     traces: the device engine's main path."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.fused_mlp import fused_mlp
     from repro_torch.kernels.window_pack import pack_window
@@ -819,13 +851,13 @@ def phase_device_main(agent) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         sim.rollout()
-    events = [e for e in prof.key_averages() if not e.is_user_annotation]
+    events = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     out["device_busy_ms"] = busy_ms
     out["device_busy_share"] = busy_ms / (wall * 1e3)
     # Device operations (kernels, copies, fills) the host issued: what
     # each round costs the host to launch.
-    issued = sum(e.count for e in events if e.device_type == DeviceType.CUDA)
+    issued = sum(e.count for e in events)
     out["device_ops_per_round"] = issued / sim.stats.rounds_run
     log(f"[device] device kernels (torch.profiler, one more rollout) "
         f"{busy_ms:.3f} ms = busy share {out['device_busy_share']:.4f} of "
@@ -850,6 +882,407 @@ def phase_device_main(agent) -> dict:
         f"environment scheduled; {n_rows} transitions of width {width} in "
         f"{collect_s:.3f} s")
     return out, sim
+
+
+def grad_bound_ms(kind: str, m: int, k: int, n: int) -> tuple:
+    """(bytes, operations) times of one float32 dgrad or wgrad, in ms: g
+    and y (M, N) and the third operand (W (K, N) or x (M, K)) read once,
+    the results (dx (M, K), or dW (K, N) and db (N,)) written once; 2MKN
+    flops (and the wgrad's MN for db)."""
+    nbytes = 2 * m * n + k * n + m * k + (n if kind == "wgrad" else 0)
+    flops = 2.0 * m * k * n + (m * n if kind == "wgrad" else 0)
+    byte_s = 4.0 * nbytes / PEAK_BYTES_PER_S
+    flop_s = flops / PEAK_F32_FLOP_PER_S
+    return byte_s * 1e3, flop_s * 1e3
+
+
+def bwd_check(name: str, got, ref, dtype, what: str) -> float:
+    """allclose at BWD_TOL, for one output or a tuple of them (the wgrad's
+    dW and db); returns the largest absolute difference."""
+    rtol, atol = BWD_TOL[dtype]
+    worst = 0.0
+    for a, b in zip(*((got, ref) if isinstance(got, tuple)
+                      else ((got,), (ref,)))):
+        a, b = a.float(), b.float()
+        err = (a - b).abs()
+        bad = err > atol + rtol * b.abs()
+        if bad.any():
+            raise AssertionError(f"[backward parity] {name} {what}: "
+                                 f"{int(bad.sum())} elements off, max abs "
+                                 f"err {float(err.max())}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def phase_backward_parity(agent) -> dict:
+    """dgrad and wgrad against their plain versions on the card at the 13
+    DFP layer shapes; returns the worst absolute error per kernel and
+    dtype."""
+    from repro_torch.kernels.fused_mlp import (ACTIVATIONS, fused_mlp_dgrad,
+                                               fused_mlp_dgrad_ref,
+                                               fused_mlp_wgrad,
+                                               fused_mlp_wgrad_ref)
+    from repro_torch.kernels.fused_mlp.ref import apply_activation
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst = {(k, d): 0.0 for k in ("dgrad", "wgrad") for d in BWD_TOL}
+    cases = 0
+    for k, n, _ in forward_layers(agent.net):
+        w32 = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
+        for m in BWD_PARITY_M:
+            x32 = torch.randn(m, k, generator=gen, device="cuda")
+            g32 = torch.randn(m, n, generator=gen, device="cuda")
+            pre = torch.randn(m, n, generator=gen, device="cuda")
+            for dtype in BWD_TOL:
+                x, g, w = x32.to(dtype), g32.to(dtype), w32.to(dtype)
+                for act in ACTIVATIONS:
+                    y = apply_activation(pre, act, 0.2).to(dtype)
+                    what = f"K={k} N={n} M={m} {dtype} {act}"
+                    dx = fused_mlp_dgrad(g, y, w, activation=act)
+                    dw_db = fused_mlp_wgrad(x, g, y, activation=act)
+                    errs = (bwd_check("dgrad", dx,
+                                      fused_mlp_dgrad_ref(g, y, w, act),
+                                      dtype, what),
+                            bwd_check("wgrad", dw_db,
+                                      fused_mlp_wgrad_ref(x, g, y, act),
+                                      dtype, what))
+                    for kind, err in zip(("dgrad", "wgrad"), errs):
+                        worst[kind, dtype] = max(worst[kind, dtype], err)
+                    cases += 1
+    torch.cuda.synchronize()
+    log(f"[backward parity] {cases} cases (13 layers x M {BWD_PARITY_M} x "
+        f"2 dtypes x 4 activations) pass for dgrad and wgrad; worst abs err "
+        f"float32 dgrad {worst['dgrad', torch.float32]!r}, wgrad "
+        f"{worst['wgrad', torch.float32]!r} (rtol 1e-3, atol 1e-4); "
+        f"bfloat16 dgrad {worst['dgrad', torch.bfloat16]!r}, wgrad "
+        f"{worst['wgrad', torch.bfloat16]!r} (2e-2)")
+    return {kind: worst[kind, torch.float32] for kind in ("dgrad", "wgrad")}
+
+
+def launch_counts() -> dict:
+    from repro_torch.kernels.fused_mlp import (fused_mlp, fused_mlp_dgrad,
+                                               fused_mlp_wgrad)
+    return {"forward": fused_mlp.launches, "dgrad": fused_mlp_dgrad.launches,
+            "wgrad": fused_mlp_wgrad.launches}
+
+
+def reset_launch_counts() -> None:
+    from repro_torch.kernels.fused_mlp import (fused_mlp, fused_mlp_dgrad,
+                                               fused_mlp_wgrad)
+    fused_mlp.launches = fused_mlp_dgrad.launches = 0
+    fused_mlp_wgrad.launches = 0
+
+
+def phase_training() -> tuple:
+    """Sequential DFP training at paper width: the training path.  Returns
+    the path's launch counts and the trained agent."""
+    from repro_torch.convert import leaves
+    from repro_torch.core import AgentConfig, MRSchAgent, train_agent
+    traces = [s1_trace(seed) for seed in TRAIN_SEEDS]
+    res = traces[0][0]
+    agent = MRSchAgent(res, AgentConfig(seed=0))
+    cfg = agent.config
+    assert (cfg.batch_size, cfg.grad_steps_per_episode, cfg.lr,
+            cfg.grad_clip) == (64, 64, 1e-4, 10.0), cfg
+    before = [p.detach().clone() for _, p in leaves(agent.net)]
+    bursts = []
+    train_steps = agent.train_steps
+
+    def timed_burst(steps: int):
+        c0 = launch_counts()
+        t0 = time.perf_counter()
+        loss = train_steps(steps)          # ends in the burst's host read
+        c1 = launch_counts()
+        bursts.append({"steps": steps, "wall_s": time.perf_counter() - t0,
+                       "loss": loss, "grad_norm": agent.last_grad_norm,
+                       "launches": {k: c1[k] - c0[k] for k in c1}})
+        return loss
+
+    agent.train_steps = timed_burst
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    log_ = train_agent(agent, res, [j for _, j in traces])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    del agent.train_steps
+
+    steps = sum(b["steps"] for b in bursts)
+    assert len(bursts) == len(traces) and steps == int(agent.opt_state.step)
+    for b in bursts:
+        n = b["steps"]
+        assert b["launches"] == {"forward": 13 * n, "dgrad": 10 * n,
+                                 "wgrad": 13 * n}, b
+        assert math.isfinite(b["loss"]) and math.isfinite(b["grad_norm"]), b
+    assert launches["dgrad"] == 10 * steps and launches["wgrad"] == 13 * steps
+    greedy_fwd = launches["forward"] - 13 * steps
+    assert greedy_fwd >= 0 and greedy_fwd % 13 == 0, launches
+    assert log_.episode_losses == [b["loss"] for b in bursts]
+    moved = [not torch.equal(a, p) for a, (_, p) in zip(before,
+                                                        leaves(agent.net))]
+    assert all(moved), f"{moved.count(False)} parameters did not move"
+    del before
+    collect_s = log_.wall_seconds - sum(b["wall_s"] for b in bursts)
+    log(f"[train] train_agent over {len(traces)} full-scale S1 traces (seeds "
+        f"{TRAIN_SEEDS}): {log_.decisions} decisions, {steps} train steps in "
+        f"{len(bursts)} bursts, {log_.wall_seconds:.3f} s; epsilon now "
+        f"{agent.epsilon!r}")
+    log(f"[train] launches: forward {launches['forward']} = 13 x {steps} "
+        f"steps + 13 x {greedy_fwd // 13} greedy decisions; dgrad "
+        f"{launches['dgrad']} = 10 x {steps}; wgrad {launches['wgrad']} = "
+        f"13 x {steps}; every burst exactly 13 / 10 / 13 per step")
+    for i, b in enumerate(bursts):
+        log(f"[train] burst {i}: {b['steps']} steps in {b['wall_s']:.4f} s "
+            f"({b['wall_s'] / b['steps'] * 1e3:.4f} ms per step, sampling "
+            f"and copy included); loss {b['loss']!r}, grad norm "
+            f"{b['grad_norm']!r}")
+    log(f"[train] collection: {log_.decisions} decisions in {collect_s:.3f} s "
+        f"= {log_.decisions / collect_s:.1f} decisions/s; all 26 parameters "
+        f"moved")
+    return launches, agent
+
+
+def batch_tensors(agent, rng) -> dict:
+    """One replay minibatch on the card, as ``train_steps`` makes it."""
+    sample = agent.replay.sample(rng, agent.config.batch_size)
+    return {k: torch.from_numpy(v).to(agent.device) for k, v in sample.items()}
+
+
+def phase_training_parity(agent) -> None:
+    """One train step's loss and gradients on the kernel and the plain
+    backend, from the same weights and minibatch; then a greedy
+    ``evaluate`` of the trained agent on both backends."""
+    from repro_torch.convert import leaves
+    from repro_torch.core import evaluate
+    from repro_torch.core.dfp import action_values, loss_fn
+    from repro_torch.core.encoding import (decision_row_dim,
+                                           encode_decision_row)
+    batch = batch_tensors(agent, np.random.default_rng(11))
+    params = [p for _, p in leaves(agent.net)]
+    dfp_torch = replace(agent.dfp, backend="torch")
+    reset_launch_counts()
+    loss_k = loss_fn(agent.net, agent.dfp, batch)
+    grads_k = torch.autograd.grad(loss_k, params)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"forward": 13, "dgrad": 10, "wgrad": 13}
+    loss_t = loss_fn(agent.net, dfp_torch, batch)
+    grads_t = torch.autograd.grad(loss_t, params)
+    torch.testing.assert_close(loss_k, loss_t, rtol=1e-4, atol=0.0)
+    grad_err = 0.0
+    for (name, _), gk, gt in zip(leaves(agent.net), grads_k, grads_t):
+        torch.testing.assert_close(gk, gt, rtol=1e-3, atol=1e-4, msg=name)
+        grad_err = max(grad_err, float((gk - gt).abs().max()))
+    log(f"[train parity] one step, kernel vs torch backend: loss "
+        f"{loss_k.item()!r} vs {loss_t.item()!r}; 26 gradient leaves within "
+        f"rtol 1e-3, atol 1e-4 (max abs diff {grad_err!r})")
+
+    res, jobs = s1_trace(TRAIN_SEEDS[-1] + 1)
+    w = agent.config.window
+    runs = {}
+    for backend in ("kernel", "torch"):
+        agent.set_backend(backend)
+        rows, actions = [], []
+        select = agent.select
+
+        def recording(ctx):
+            row = np.zeros(decision_row_dim(agent.enc, w), np.float32)
+            encode_decision_row(agent.enc, ctx, w, out=row)
+            rows.append(row)
+            actions.append(select(ctx))
+            return actions[-1]
+
+        agent.select = recording
+        result = evaluate(agent, res, jobs, window=w)
+        del agent.select
+        runs[backend] = (result, rows, actions)
+    agent.set_backend("kernel")
+    rows = torch.from_numpy(np.stack(runs["torch"][1])).to("cuda")
+    sd, m = agent.enc.state_dim, agent.enc.n_resources
+    u = torch.cat([action_values(agent.net, dfp_torch,
+                                 c[:, :sd].contiguous(),
+                                 c[:, sd:sd + m].contiguous(),
+                                 c[:, sd + m:sd + 2 * m].contiguous())
+                   for c in rows.split(64)])
+    u = torch.where(rows[:, sd + 2 * m:] > 0.5, u, -torch.inf).cpu().numpy()
+    fin = np.isfinite(u)
+    tol = 2e-4 * max(1.0, float(np.abs(u[fin]).max()))
+    top2 = np.sort(u, axis=1)[:, -2:]
+    ties = np.flatnonzero(top2[:, 1] - top2[:, 0] <= tol)
+    a_k, a_t = runs["kernel"][2], runs["torch"][2]
+    n_cmp = int(ties[0]) if len(ties) else len(a_t)
+    assert a_k[:n_cmp] == a_t[:n_cmp], "greedy actions differ"
+    full = a_k == a_t
+    r_k, r_t = runs["kernel"][0], runs["torch"][0]
+    assert r_k.n_unstarted == r_t.n_unstarted == 0
+    if full:
+        assert r_k.metrics.as_row() == r_t.metrics.as_row()
+    log(f"[train parity] evaluate (greedy, seed {TRAIN_SEEDS[-1] + 1}): "
+        f"{n_cmp} of {len(a_t)} decisions compared (first top-2 margin <= tol "
+        f"{tol!r}: {'none' if not len(ties) else int(ties[0])}); actions "
+        f"equal; " + ("whole sequences and metrics equal" if full else
+                      "sequences part after a near-tie"))
+    log(f"[train parity] kernel-backend ScheduleMetrics "
+        f"{json.dumps(r_k.metrics.as_row())}")
+
+
+BURST_GROUPS = (("forward (B1)", ("fused_mlp_fwd_kernel",
+                                  "splitk_epilogue_kernel")),
+                ("dgrad (B2)", ("dgrad_kernel", "splitk_sum_kernel")),
+                ("wgrad (B3)", ("wgrad_kernel",)),
+                ("gradient norm", ("norm",)),
+                ("Adam", ("multi_tensor_apply",)),
+                ("host-to-device copy", ("memcpy htod",)))
+
+
+def phase_training_timing(agent) -> None:
+    """Where a train step's time goes, on the trained agent: waited-for
+    single steps on each backend, a burst's wall time and host sampling,
+    and one profiled burst (device time by kernel group, host time by
+    operator)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    # A waited-for step (one minibatch sampled, copied, trained on) on each
+    # backend, in turns kernel, torch, torch, kernel after one warm-up.
+    agent.train_steps(1)
+    per = {"kernel": [], "torch": []}
+    for backend in ("kernel", "torch", "torch", "kernel"):
+        agent.set_backend(backend)
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            agent.train_steps(1)               # ends in its host read
+            per[backend].append((time.perf_counter() - t0) * 1e3)
+    agent.set_backend("kernel")
+    log(f"[train timing] a waited-for train step (train_steps(1)), median of "
+        f"20 in turns: kernel backend {statistics.median(per['kernel']):.4f} "
+        f"ms, torch backend {statistics.median(per['torch']):.4f} ms wall")
+    k = agent.config.grad_steps_per_episode
+    rng = np.random.default_rng(12)
+    t0 = time.perf_counter()
+    for _ in range(k):
+        agent.replay.sample(rng, agent.config.batch_size)
+    sample_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agent.train_steps(k)
+    burst_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        agent.train_steps(k)
+    events = device_events(prof)
+    device_ms_ = sum(e.self_device_time_total for e in events) / 1e3
+    assert device_ms_ > 0, "the profiled burst shows no device time"
+    groups = {name: 0.0 for name, _ in BURST_GROUPS}
+    groups["other"] = 0.0
+    for e in events:
+        key = e.key.lower()
+        name = next((g for g, keys in BURST_GROUPS
+                     if any(s in key for s in keys)), "other")
+        groups[name] += e.self_device_time_total / 1e3
+    log(f"[train timing] a burst of {k} steps: {burst_ms:.3f} ms wall "
+        f"({burst_ms / k:.4f} ms per step), of which sampling {k} minibatches "
+        f"on the host {sample_ms:.3f} ms; device {device_ms_:.3f} ms "
+        f"(profiled burst) = {device_ms_ / k:.4f} ms per step, busy share "
+        f"{device_ms_ / burst_ms:.4f}")
+    for name, ms in groups.items():
+        log(f"[train timing]   {name:20s} {ms:9.3f} ms per burst = "
+            f"{ms / k:.4f} ms per step ({ms / device_ms_:.3f})")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"[train timing]   {e.self_device_time_total / 1e3:9.3f} ms "
+            f"x{e.count:5d}  {e.key[:90]}")
+    # Host side of the same burst: the operators with the most own host
+    # time (inflated by the profiler; read as shares).
+    host = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and not e.is_user_annotation]
+    host_ms = sum(e.self_cpu_time_total for e in host) / 1e3
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:12]:
+        log(f"[train timing]   host {e.self_cpu_time_total / 1e3:9.3f} ms "
+            f"({e.self_cpu_time_total / 1e3 / host_ms:.3f}) x{e.count:5d}  "
+            f"{e.key[:80]}")
+
+
+def phase_backward_main_path(agent) -> dict:
+    """dgrad and wgrad on the operands the training path gives them: one
+    more train step's backward records each call's operands; each is held
+    against its plain version, then timed beside its bound, its plain
+    version and ``torch.mm`` on the act'-scaled gradient.  The launches
+    made here are not counted: the path's count was read before."""
+    from repro_torch.convert import leaves
+    from repro_torch.core.dfp import loss_fn
+    from repro_torch.kernels.fused_mlp import kernel as fm
+    calls = {"dgrad": [], "wgrad": []}
+    launch_dgrad, launch_wgrad = fm.fused_mlp_dgrad, fm.fused_mlp_wgrad
+
+    def rec_dgrad(g, y, w, activation, slope):
+        calls["dgrad"].append((g.clone(), y, w, activation))
+        return launch_dgrad(g, y, w, activation, slope)
+
+    def rec_wgrad(x, g, y, activation, slope):
+        calls["wgrad"].append((x, g.clone(), y, activation))
+        return launch_wgrad(x, g, y, activation, slope)
+
+    params = [p for _, p in leaves(agent.net)]
+    fm.fused_mlp_dgrad, fm.fused_mlp_wgrad = rec_dgrad, rec_wgrad
+    try:
+        batch = batch_tensors(agent, np.random.default_rng(13))
+        torch.autograd.grad(loss_fn(agent.net, agent.dfp, batch), params)
+    finally:
+        fm.fused_mlp_dgrad, fm.fused_mlp_wgrad = launch_dgrad, launch_wgrad
+    assert len(calls["dgrad"]) == 10 and len(calls["wgrad"]) == 13, \
+        {k: len(v) for k, v in calls.items()}
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    out = {}
+    with torch.no_grad():            # y is a saved output that needs grad
+        for kind in ("dgrad", "wgrad"):
+            rows, err = [], 0.0
+            for call in calls[kind]:
+                run, ref, lib, (m, k, n), act = grad_closures(kind, *call)
+                err = max(err, bwd_check(kind, run(), ref(), torch.float32,
+                                         f"main path K={k} N={n} M={m} {act}"))
+                t_k, t_p, t_l = (device_ms(f, flush) for f in (run, ref, lib))
+                b_ms, o_ms = grad_bound_ms(kind, m, k, n)
+                rows.append((t_k, t_p, t_l, b_ms, o_ms))
+                log(f"[{kind} main path] K={k:5d} N={n:4d} M={m} {act:10s}: "
+                    f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  torch.mm "
+                    f"{t_l:.4f} ms  bound {max(b_ms, o_ms):.4f} ms "
+                    f"({'bytes' if b_ms >= o_ms else 'operations'})")
+            t_k, t_p, t_l, b_ms, o_ms = (sum(r[i] for r in rows)
+                                         for i in range(5))
+            by = "bytes" if b_ms >= o_ms else "operations"
+            out[kind] = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+                         "library_ms": t_l, "bound_ms": max(b_ms, o_ms),
+                         "bound_by": by, "layers": len(rows)}
+            log(f"[{kind} main path] {len(rows)} layers of one train step, "
+                f"summed: kernel {t_k:.4f} ms  plain {t_p:.4f} ms  torch.mm "
+                f"{t_l:.4f} ms  bound {max(b_ms, o_ms):.4f} ms ({by}); max "
+                f"abs err {err!r} against the plain version")
+    return out
+
+
+def grad_closures(kind: str, a, b, c, act: str) -> tuple:
+    """For one recorded dgrad (g, y, w) or wgrad (x, g, y) call: the kernel,
+    its plain version and ``torch.mm`` on the act'-scaled gradient (made
+    beforehand, untimed, as is the wgrad's column of ones), as closures;
+    (M, K, N); the activation."""
+    from repro_torch.kernels.fused_mlp import (fused_mlp_dgrad,
+                                               fused_mlp_dgrad_ref,
+                                               fused_mlp_wgrad,
+                                               fused_mlp_wgrad_ref)
+    from repro_torch.kernels.fused_mlp.ref import scaled_grad_ref
+    if kind == "dgrad":
+        g, y, w = a, b, c
+        gm = scaled_grad_ref(g, y, act, 0.2)
+        return (lambda: fused_mlp_dgrad(g, y, w, activation=act),
+                lambda: fused_mlp_dgrad_ref(g, y, w, act),
+                lambda: torch.mm(gm, w.t()),
+                (g.shape[0], w.shape[0], g.shape[1]), act)
+    x, g, y = a, b, c
+    gm = scaled_grad_ref(g, y, act, 0.2)
+    # [x | 1]^T @ gm gives dW and, as its last row, db: one library call
+    # for the wgrad's two results.
+    x1 = torch.cat([x, torch.ones_like(x[:, :1])], dim=1)
+    return (lambda: fused_mlp_wgrad(x, g, y, activation=act),
+            lambda: fused_mlp_wgrad_ref(x, g, y, act),
+            lambda: torch.mm(x1.t(), gm),
+            (x.shape[0], x.shape[1], g.shape[1]), act)
 
 
 def main() -> int:
@@ -879,12 +1312,21 @@ def main() -> int:
     device, sim = timed("device-engine path", phase_device_main, agent)
     wp_main = timed("window_pack on the main path",
                     phase_window_pack_main_path, sim)
+    del sim
+    bwd_worst = timed("fused_mlp backward parity", phase_backward_parity,
+                      agent)
+    train_launches, trained = timed("training path", phase_training)
+    timed("training parity", phase_training_parity, trained)
+    timed("training timing", phase_training_timing, trained)
+    bwd_main = timed("backward on the training path",
+                     phase_backward_main_path, trained)
     t_k, t_p, t_l, bnd, by = timing["sums"][16]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     kernels = {"kernels": [{
         "name": "fused_mlp_forward", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": service["launches"] + device["launches"]["fused_mlp"],
+        "launches": (service["launches"] + device["launches"]["fused_mlp"]
+                     + train_launches["forward"]),
         "max_abs_err": worst_f32,
         "ms": t_k, "plain_ms": t_p, "bound_ms": bnd, "bound_by": by,
         "library_ms": t_l,
@@ -896,7 +1338,16 @@ def main() -> int:
         "ms": wp_main["ms"], "plain_ms": wp_main["plain_ms"],
         "bound_ms": wp_main["bound_ms"], "bound_by": wp_main["bound_by"],
         "library_ms": None,
-    }]}
+    }] + [{
+        "name": f"fused_mlp_{kind}", "route": "cuda", "source": BWD_SOURCE,
+        "replaces": replaces, "launches": train_launches[kind],
+        "max_abs_err": max(bwd_worst[kind], bwd_main[kind]["max_abs_err"]),
+        "ms": bwd_main[kind]["ms"], "plain_ms": bwd_main[kind]["plain_ms"],
+        "bound_ms": bwd_main[kind]["bound_ms"],
+        "bound_by": bwd_main[kind]["bound_by"],
+        "library_ms": bwd_main[kind]["library_ms"],
+    } for kind, replaces in (("dgrad", DGRAD_REPLACES),
+                             ("wgrad", WGRAD_REPLACES))]}
     print(card)
     print(json.dumps(kernels))
     # The run uses one card, whatever else the host has.

@@ -1,30 +1,33 @@
-"""The MRSch scheduling agent (paper §III), in evaluation mode.
+"""The MRSch scheduling agent (paper §III).
 
-Wraps the DFP network with the vector state encoding and the Eq. (1)
-dynamic goal vector, and implements the simulator's ``SchedulingPolicy``
-protocol with greedy decisions, and the device stages of the ``Policy``
-protocol (``init_state``/``score_window``) that the device rollout
-engine scores with.  Exploration, the replay buffer and Adam
-training are not ported yet.  ``save``/``load`` read and write the JAX
-package's ``.npz`` format, so a file saved by either package loads in the
-other.
+Wraps the DFP network with the vector state encoding, the Eq. (1) dynamic
+goal vector, epsilon-greedy exploration, the episodic replay buffer and
+Adam training on the future-measurement MSE.  Implements the simulator's
+``SchedulingPolicy`` protocol (``select``, ε-greedy while ``training``)
+and the device stages of the ``Policy`` protocol
+(``init_state``/``score_window``) that the device rollout engine scores
+with.  ``save``/``load`` read and write the JAX package's ``.npz``
+format, so a file saved by either package loads in the other.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..convert import load_npz, save_npz
+from ..convert import leaves, load_npz, save_npz
 from ..nn.backend import resolve_backend
+from ..nn.optim import adam_init, adam_update
 from ..sim.cluster import ResourceSpec
 from ..sim.simulator import SchedContext
-from .dfp import DFPConfig, DFPNetwork, action_values, greedy_actions_packed
+from .dfp import (DFPConfig, DFPNetwork, action_values, greedy_actions_packed,
+                  loss_fn)
 from .encoding import (EncodingConfig, decision_row_dim, encode_decision_row,
                        encode_measurement, encode_state, pad_decision_rows)
 from .goal import ctx_goal
+from .replay import EpisodeRecorder, ReplayBuffer
 
 
 def resolve_device(device=None) -> torch.device:
@@ -41,6 +44,13 @@ class AgentConfig:
     window: int = 10
     offsets: Tuple[int, ...] = (1, 2, 4, 8, 16, 32)
     temporal_weights: Tuple[float, ...] = (0.0, 0.0, 0.0, 0.5, 0.5, 1.0)
+    lr: float = 1e-4
+    batch_size: int = 64
+    grad_steps_per_episode: int = 64
+    buffer_rows: int = 200_000
+    eps_start: float = 1.0
+    eps_decay: float = 0.995          # paper §IV-C: alpha = 0.995
+    eps_min: float = 0.02
     state_module: str = "mlp"
     backend: str = "kernel"           # "torch" | "kernel" (fused-MLP kernel)
     state_hidden: Tuple[int, ...] = (4000, 1000)
@@ -48,10 +58,11 @@ class AgentConfig:
     module_hidden: int = 128
     stream_hidden: int = 512
     seed: int = 0
+    grad_clip: float = 10.0
 
 
 class MRSchAgent:
-    """DFP-based multi-resource scheduling agent (greedy decisions)."""
+    """DFP-based multi-resource scheduling agent."""
 
     def __init__(self, resources: Sequence[ResourceSpec],
                  config: AgentConfig = AgentConfig(), *, device=None):
@@ -77,7 +88,18 @@ class MRSchAgent:
         )
         gen = torch.Generator().manual_seed(config.seed)
         self.net = DFPNetwork(self.dfp, generator=gen, device=self.device)
-        self.epsilon = 0.0
+        self.opt_state = adam_init(self._params())
+        self.replay = ReplayBuffer(config.offsets, config.buffer_rows)
+        self.recorder = EpisodeRecorder()
+        self.rng = np.random.default_rng(config.seed)
+        self.epsilon = config.eps_start
+        self.training = False
+        self.losses: List[float] = []
+        # Pre-clip global gradient norm, the mean over the latest burst.
+        self.last_grad_norm: Optional[float] = None
+
+    def _params(self) -> List[torch.Tensor]:
+        return [p for _, p in leaves(self.net)]
 
     def set_backend(self, backend: str) -> None:
         """Switch the NN execution backend ("torch" | "kernel") in place;
@@ -112,15 +134,25 @@ class MRSchAgent:
         return torch.from_numpy(a).to(self.device)
 
     def select(self, ctx: SchedContext) -> int:
+        """Greedy, or ε-greedy while ``training`` (one uniform draw per
+        decision and one integer draw when exploring, from ``rng``), in
+        which case the decision is recorded for the replay buffer."""
         state = encode_state(self.enc, ctx)
         meas = encode_measurement(self.enc, ctx)
         goal = ctx_goal(ctx, self.enc.resource_names)
         n_valid = min(len(ctx.window), self.config.window)
-        u = action_values(self.net, self.dfp, self._tensor(state)[None],
-                          self._tensor(meas)[None], self._tensor(goal)[None])
-        u = u[0].cpu().numpy()
-        u[n_valid:] = -np.inf
-        return int(np.argmax(u))
+        if self.training and self.rng.uniform() < self.epsilon:
+            action = int(self.rng.integers(0, n_valid))
+        else:
+            u = action_values(self.net, self.dfp, self._tensor(state)[None],
+                              self._tensor(meas)[None],
+                              self._tensor(goal)[None])
+            u = u[0].cpu().numpy()
+            u[n_valid:] = -np.inf
+            action = int(np.argmax(u))
+        if self.training:
+            self.recorder.record(state, meas, goal, action)
+        return action
 
     def select_batch(self, ctxs: Sequence[SchedContext]) -> np.ndarray:
         """Greedy actions for N pending decisions with ONE forward."""
@@ -142,11 +174,63 @@ class MRSchAgent:
         acts = greedy_actions_packed(self.net, self.dfp, self._tensor(packed))
         return acts.cpu().numpy()[:n].astype(np.int32)
 
+    # ---------------------------------------------------------------- train
+    def end_episode(self) -> Optional[float]:
+        """Flush the recorded episode into the replay buffer; once the
+        buffer holds a minibatch, run ``grad_steps_per_episode`` train
+        steps and decay epsilon.  Returns the burst's mean loss, or None
+        when no step ran."""
+        ep = self.recorder.finish()
+        if ep is not None:
+            self.replay.add(ep)
+        if not self.training or self.replay.rows < self.config.batch_size:
+            return None
+        mean_loss = self.train_steps(self.config.grad_steps_per_episode)
+        if mean_loss is None:
+            return None
+        self.losses.append(mean_loss)
+        self.epsilon = max(self.config.eps_min,
+                           self.epsilon * self.config.eps_decay)
+        return mean_loss
+
+    def train_steps(self, steps: int) -> Optional[float]:
+        """Run ``steps`` Adam steps on replay minibatches; returns the mean
+        loss (None when the buffer cannot fill a minibatch) and sets
+        ``last_grad_norm`` to the mean pre-clip gradient norm.
+
+        All minibatches are sampled first, in the reference's order, and
+        copied to the device together; losses and norms stay on the device
+        until the burst ends, so a burst reads the host back once.
+        """
+        if self.replay.rows < self.config.batch_size or steps <= 0:
+            return None
+        samples = [self.replay.sample(self.rng, self.config.batch_size)
+                   for _ in range(steps)]
+        batches = {k: torch.from_numpy(np.stack([s[k] for s in samples]))
+                   .to(self.device) for k in samples[0]}
+        params = self._params()
+        losses, norms = [], []
+        for i in range(steps):
+            loss = loss_fn(self.net, self.dfp,
+                           {k: v[i] for k, v in batches.items()})
+            grads = torch.autograd.grad(loss, params)
+            self.opt_state, gnorm = adam_update(
+                grads, self.opt_state, params, lr=self.config.lr,
+                grad_clip=self.config.grad_clip)
+            losses.append(loss.detach())
+            norms.append(gnorm)
+        mean_loss, mean_norm = torch.stack(
+            [torch.stack(losses).mean(), torch.stack(norms).mean()]).tolist()
+        self.last_grad_norm = mean_norm
+        return mean_loss
+
     # ---------------------------------------------------------------- io
     def save(self, path: str) -> None:
         save_npz(path, self.net, epsilon=self.epsilon)
 
     def load(self, path: str) -> None:
-        """Restore ``save``d weights (from either package), raising
-        ``ValueError`` on a leaf count, shape or dtype mismatch."""
+        """Restore ``save``d weights and epsilon (from either package),
+        raising ``ValueError`` on a leaf count, shape or dtype mismatch;
+        the Adam state starts afresh."""
         self.epsilon = load_npz(path, self.net)
+        self.opt_state = adam_init(self._params())

@@ -1,5 +1,5 @@
 """Direct Future Prediction network (Dosovitskiy & Koltun '17) as adapted by
-MRSch (paper §II-B, §III, §IV-C), for inference.
+MRSch (paper §II-B, §III, §IV-C), and its training loss.
 
 Three input modules:
   * state module   — MLP  state_dim -> 4000 -> 1000 -> 512 (leaky rectifier);
@@ -19,8 +19,9 @@ with fixed temporal weights w and the dynamic goal vector g from Eq. (1).
 The functions take the network (the weights) and a ``DFPConfig`` (the
 shape contract and the backend) separately, as the JAX package's take
 ``params`` and ``cfg``, so one set of weights runs on either backend.
-Only the "mlp" state module is ported; the CNN and attention variants,
-and the training loss, are not yet.
+The inference functions run under ``torch.no_grad()``; ``loss_fn`` runs
+the same forward body with autograd on.  Only the "mlp" state module is
+ported; the CNN and attention variants are not yet.
 """
 from __future__ import annotations
 
@@ -93,11 +94,9 @@ class DFPNetwork(nn.Module):
                            cfg.n_actions * cfg.pred_dim], **kw)
 
 
-@torch.no_grad()
-def predict(net: DFPNetwork, cfg: DFPConfig, state: torch.Tensor,
-            meas: torch.Tensor, goal: torch.Tensor) -> torch.Tensor:
-    """state (B, state_dim), meas (B, M), goal (B, M)
-    -> predictions (B, A, T, M): per-action future measurement deltas."""
+def _predict(net: DFPNetwork, cfg: DFPConfig, state: torch.Tensor,
+             meas: torch.Tensor, goal: torch.Tensor) -> torch.Tensor:
+    """The forward body shared by ``predict`` and ``loss_fn``."""
     be = cfg.backend
     s = mlp_forward(net.state, state, final_activation="leaky_relu",
                     backend=be)
@@ -111,6 +110,31 @@ def predict(net: DFPNetwork, cfg: DFPConfig, state: torch.Tensor,
     a = a - a.mean(dim=-2, keepdim=True)                           # dueling norm
     p = e[..., None, :] + a                                        # (B, A, T*M)
     return p.reshape(*p.shape[:-1], cfg.n_offsets, cfg.n_measurements)
+
+
+@torch.no_grad()
+def predict(net: DFPNetwork, cfg: DFPConfig, state: torch.Tensor,
+            meas: torch.Tensor, goal: torch.Tensor) -> torch.Tensor:
+    """state (B, state_dim), meas (B, M), goal (B, M)
+    -> predictions (B, A, T, M): per-action future measurement deltas."""
+    return _predict(net, cfg, state, meas, goal)
+
+
+def loss_fn(net: DFPNetwork, cfg: DFPConfig, batch) -> torch.Tensor:
+    """MSE between the taken action's predicted and realised future deltas.
+
+    ``batch``: tensors state (B, S), meas (B, M), goal (B, M), action (B,),
+    target (B, T, M) and target_mask (B, T); the mask drops offsets past
+    the episode's end.  The sum of squared errors over the kept entries,
+    over ``max(mask.sum() * M, 1)``.
+    """
+    p = _predict(net, cfg, batch["state"], batch["meas"], batch["goal"])
+    rows = torch.arange(p.shape[0], device=p.device)
+    taken = p[rows, batch["action"].long()]                        # (B, T, M)
+    err = (taken - batch["target"]) ** 2
+    mask = batch["target_mask"][..., None]
+    return (err * mask).sum() / torch.clamp_min(
+        mask.sum() * cfg.n_measurements, 1.0)
 
 
 @torch.no_grad()

@@ -1,7 +1,8 @@
-"""Build, load and launch the fused dense-layer CUDA kernel
-(``csrc/fused_mlp.cu``, compiled for ``sm_90a``).
+"""Build, load and launch the fused dense-layer CUDA kernels, compiled for
+``sm_90a``: the forward (``csrc/fused_mlp.cu``) and the two gradient
+kernels, dgrad and wgrad (``csrc/fused_mlp_bwd.cu``), one library each.
 
-The library is built at first use with ``nvcc`` by the shared scheme of
+The libraries are built at first use with ``nvcc`` by the shared scheme of
 ``kernels/_build.py`` (keyed by a hash of the source and the flags) and
 bound with ``ctypes``; nothing here runs when the module is imported.
 """
@@ -17,6 +18,7 @@ from .._build import BuildInfo, build_library, check_launch, load_library
 from .ref import ACTIVATIONS
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_mlp.cu"
+BWD_SOURCE = SOURCE.with_name("fused_mlp_bwd.cu")
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -26,10 +28,20 @@ MAX_TILE_M = 16         # rows of x per block
 MIN_SPLIT_ROWS = 64     # a K split shorter than this costs more than it hides
 BLOCKS_PER_SM = 4       # blocks the split aims to put in flight per SM
 
+# Backward geometry, as fixed in csrc/fused_mlp_bwd.cu.
+DGRAD_TILE = 64         # rows of M and columns of K per dgrad block
+DGRAD_STEP_N = 32       # columns of N staged per step
+MIN_SPLIT_COLS = 128    # shortest N range a dgrad split covers
+
 
 def build() -> BuildInfo:
-    """Compile the kernel library if this source has not been built yet."""
+    """Compile the forward library if this source has not been built yet."""
     return build_library("fused_mlp", SOURCE)
+
+
+def build_backward() -> BuildInfo:
+    """Compile the gradient library if this source has not been built yet."""
+    return build_library("fused_mlp_bwd", BWD_SOURCE)
 
 
 @functools.cache
@@ -39,6 +51,20 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _backward_library() -> ctypes.CDLL:
+    lib = load_library(build_backward())
+    lib.mrsch_fused_mlp_dgrad.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.mrsch_fused_mlp_wgrad.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.mrsch_fused_mlp_dgrad.restype = ctypes.c_int
+    lib.mrsch_fused_mlp_wgrad.restype = ctypes.c_int
     return lib
 
 
@@ -85,3 +111,63 @@ def fused_mlp_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             float(slope), DTYPES[x.dtype], stream)
     check_launch(lib, "fused_mlp", err, f"M={m} K={k} N={n} splits={splits}")
     return y
+
+
+def dgrad_split_plan(m: int, k: int, n: int, sm_count: int) -> tuple:
+    """(splits, chunk) of the dgrad: N is cut into ``splits`` ranges of
+    ``chunk`` columns (a multiple of ``DGRAD_STEP_N``), as ``split_plan``
+    cuts K for the forward, until about ``BLOCKS_PER_SM`` blocks per SM are
+    in flight, never into ranges shorter than ``MIN_SPLIT_COLS``."""
+    tiles = -(-k // DGRAD_TILE) * -(-m // DGRAD_TILE)
+    want = max(1, -(-BLOCKS_PER_SM * sm_count // tiles))
+    splits = max(1, min(want, n // MIN_SPLIT_COLS, 65535))
+    chunk = -(-n // splits)
+    chunk = -(-chunk // DGRAD_STEP_N) * DGRAD_STEP_N
+    return -(-n // chunk), chunk
+
+
+def fused_mlp_dgrad(g: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                    activation: str, slope: float) -> torch.Tensor:
+    """Launch the dgrad on CUDA tensors the caller has checked: g, y (M, N),
+    w (K, N), one dtype, contiguous, on one device -> dx (M, K)."""
+    m, n = g.shape
+    k = w.shape[0]
+    device = g.device
+    splits, chunk = dgrad_split_plan(m, k, n, _sm_count(device.index))
+    dx = torch.empty((m, k), dtype=g.dtype, device=device)
+    partial = (torch.empty((splits, m, k), dtype=torch.float32, device=device)
+               if splits > 1 else None)
+    lib = _backward_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.mrsch_fused_mlp_dgrad(
+            g.data_ptr(), y.data_ptr(), w.data_ptr(), dx.data_ptr(),
+            partial.data_ptr() if partial is not None else None,
+            m, k, n, splits, chunk, int(k % 4 == 0),
+            ACTIVATIONS.index(activation), float(slope), DTYPES[g.dtype],
+            stream)
+    check_launch(lib, "fused_mlp_dgrad", err,
+                 f"M={m} K={k} N={n} splits={splits}")
+    return dx
+
+
+def fused_mlp_wgrad(x: torch.Tensor, g: torch.Tensor, y: torch.Tensor,
+                    activation: str, slope: float) -> tuple:
+    """Launch the wgrad on CUDA tensors the caller has checked: x (M, K),
+    g, y (M, N), one dtype, contiguous, on one device -> (dW (K, N),
+    db (N,)), both from the one launch."""
+    m, k = x.shape
+    n = g.shape[1]
+    device = x.device
+    dw = torch.empty((k, n), dtype=x.dtype, device=device)
+    db = torch.empty((n,), dtype=x.dtype, device=device)
+    lib = _backward_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.mrsch_fused_mlp_wgrad(
+            x.data_ptr(), g.data_ptr(), y.data_ptr(), dw.data_ptr(),
+            db.data_ptr(), m, k, n, int(n % 4 == 0),
+            ACTIVATIONS.index(activation), float(slope), DTYPES[x.dtype],
+            stream)
+    check_launch(lib, "fused_mlp_wgrad", err, f"M={m} K={k} N={n}")
+    return dw, db

@@ -1,16 +1,18 @@
-"""Execution backend for dense/MLP forwards.
+"""Execution backend for dense/MLP layers.
 
-Two backends run the same modules (switching never touches the weights):
+Two backends run the same modules (switching never touches the weights),
+and both are differentiable:
 
-* ``"torch"``  — plain PyTorch ops (``Dense`` + activation), the
-                 counterpart of the JAX package's ``"xla"``;
+* ``"torch"``  — plain PyTorch ops (``Dense`` + activation), through
+                 autograd; the counterpart of the JAX package's ``"xla"``;
 * ``"kernel"`` — every layer runs through the fused matmul+bias+act
-                 wrapper (``repro_torch.kernels.fused_mlp``): the CUDA
-                 kernel for a tensor on the card, its plain version for a
-                 tensor on the CPU.  The counterpart of ``"pallas"``.
+                 wrapper (``repro_torch.kernels.fused_mlp``), whose
+                 gradient runs the dgrad and wgrad kernels: the CUDA
+                 kernels for a tensor on the card, their plain versions
+                 for a tensor on the CPU.  The counterpart of ``"pallas"``.
 
 Activations are named (strings), not callables, so the kernel epilogue
-can fuse them; ``None`` means linear.  Forward only.
+can fuse them; ``None`` means linear.
 """
 from __future__ import annotations
 

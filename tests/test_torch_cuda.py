@@ -182,3 +182,137 @@ def test_device_rollout_on_the_card_matches_plain_backend(cuda):
     for a, b in zip(ro_k.results, ro_t.results):
         assert a.metrics.as_row() == b.metrics.as_row()
         assert a.n_unstarted == 0
+
+
+# ------------------------------------------------------------ gradients
+# The DFP layer shapes (K, N), plus ragged ones (N not a multiple of 4 or of
+# 128; K not a multiple of 4 or of 64).
+BWD_SHAPES = [(11410, 4000), (4000, 1000), (1000, 512), (2, 128),
+              (128, 128), (768, 512), (512, 12), (512, 120), (300, 129),
+              (63, 7)]
+
+
+@pytest.mark.parametrize("k,n", BWD_SHAPES)
+@pytest.mark.parametrize("m", [1, 37, 64, 128])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-3, 1e-4)),
+                                       (torch.bfloat16, (2e-2, 2e-2))])
+def test_gradient_kernels_match_plain_versions(cuda, m, k, n, dtype, tol):
+    """dgrad and wgrad (dW and db) against their plain versions, all four
+    activations, at the reference's gradient tolerance (bfloat16: 2e-2)."""
+    from repro_torch.kernels.fused_mlp import (fused_mlp_dgrad,
+                                               fused_mlp_dgrad_ref,
+                                               fused_mlp_wgrad,
+                                               fused_mlp_wgrad_ref)
+    from repro_torch.kernels.fused_mlp.ref import apply_activation
+    rng = np.random.default_rng(m + k + n)
+    x, w, _ = _inputs(m, k, n, seed=m * k + n, device=cuda, dtype=dtype)
+    g = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
+    pre = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
+    rtol, atol = tol
+    for act in ACTIVATIONS:
+        y = apply_activation(pre, act, 0.2).to(cuda, dtype)
+        gd = g.to(cuda, dtype)
+        launches = (fused_mlp_dgrad.launches, fused_mlp_wgrad.launches)
+        dx = fused_mlp_dgrad(gd, y, w, activation=act)
+        dw, db = fused_mlp_wgrad(x, gd, y, activation=act)
+        torch.cuda.synchronize()
+        assert (fused_mlp_dgrad.launches, fused_mlp_wgrad.launches) == \
+            (launches[0] + 1, launches[1] + 1)
+        assert dx.dtype == dw.dtype == db.dtype == dtype
+        assert dx.shape == (m, k) and dw.shape == (k, n) and db.shape == (n,)
+        torch.testing.assert_close(
+            dx.float(), fused_mlp_dgrad_ref(gd, y, w, act).float(),
+            rtol=rtol, atol=atol)
+        ref_dw, ref_db = fused_mlp_wgrad_ref(x, gd, y, act)
+        torch.testing.assert_close(dw.float(), ref_dw.float(), rtol=rtol,
+                                   atol=atol)
+        torch.testing.assert_close(db.float(), ref_db.float(), rtol=rtol,
+                                   atol=atol)
+
+
+def test_gradient_kernels_reject_and_never_fall_back(cuda):
+    from repro_torch.kernels.fused_mlp import fused_mlp_dgrad, fused_mlp_wgrad
+    g = torch.ones(4, 8, device=cuda)
+    with pytest.raises(ValueError, match="different devices"):
+        fused_mlp_dgrad(g, g, torch.ones(16, 8))
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_mlp_wgrad(torch.ones(16, 4, device=cuda).t(), g, g)
+    with pytest.raises(TypeError, match="dtype"):
+        fused_mlp_wgrad(torch.ones(4, 16, device=cuda).half(), g.half(),
+                        g.half())
+
+
+def _small_trainer(**over):
+    from repro_torch.core import AgentConfig, MRSchAgent
+    from repro_torch.sim import ResourceSpec
+    res = [ResourceSpec("node", 16), ResourceSpec("bb", 8)]
+    cfg = AgentConfig(state_hidden=(64, 32), state_out=16, module_hidden=8,
+                      stream_hidden=16, **over)
+    return res, MRSchAgent(res, cfg)
+
+
+def test_train_step_kernel_backend_matches_torch_backend(cuda):
+    """One loss and its 26 gradient leaves from the same weights and batch:
+    the kernel backend (13 forward, 10 dgrad, 13 wgrad launches) against
+    autograd through plain ops."""
+    from dataclasses import replace
+
+    from repro_torch.convert import leaves
+    from repro_torch.core.dfp import loss_fn
+    from repro_torch.kernels.fused_mlp import fused_mlp_dgrad, fused_mlp_wgrad
+    _, agent = _small_trainer()
+    cfg = agent.dfp
+    rng = np.random.default_rng(3)
+    b, m, t = 64, cfg.n_measurements, cfg.n_offsets
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in {
+        "state": rng.uniform(0, 1, (b, cfg.state_dim)).astype(np.float32),
+        "meas": rng.uniform(0, 1, (b, m)).astype(np.float32),
+        "goal": rng.dirichlet(np.ones(m), b).astype(np.float32),
+        "action": rng.integers(0, cfg.n_actions, b).astype(np.int32),
+        "target": rng.standard_normal((b, t, m)).astype(np.float32),
+        "target_mask": (rng.uniform(size=(b, t)) < 0.7).astype(np.float32),
+    }.items()}
+    params = [p for _, p in leaves(agent.net)]
+    fused_mlp.launches = fused_mlp_dgrad.launches = 0
+    fused_mlp_wgrad.launches = 0
+    loss_k = loss_fn(agent.net, cfg, batch)
+    grads_k = torch.autograd.grad(loss_k, params)
+    torch.cuda.synchronize()
+    assert (fused_mlp.launches, fused_mlp_dgrad.launches,
+            fused_mlp_wgrad.launches) == (13, 10, 13)
+    loss_t = loss_fn(agent.net, replace(cfg, backend="torch"), batch)
+    grads_t = torch.autograd.grad(loss_t, params)
+    torch.testing.assert_close(loss_k, loss_t, rtol=1e-4, atol=0.0)
+    for (name, _), gk, gt in zip(leaves(agent.net), grads_k, grads_t):
+        torch.testing.assert_close(gk, gt, rtol=1e-3, atol=1e-4, msg=name)
+
+
+def test_train_agent_on_the_card(cuda):
+    """A few episodes of sequential training on the card: every train step
+    runs 10 dgrad and 13 wgrad launches, losses are finite, weights move."""
+    from repro_torch.core import train_agent
+    from repro_torch.kernels.fused_mlp import fused_mlp_dgrad, fused_mlp_wgrad
+    from repro_torch.sim import Job
+    res, agent = _small_trainer(batch_size=16, grad_steps_per_episode=4)
+    before = [p.detach().clone() for p in agent.net.parameters()]
+    rng = np.random.default_rng(4)
+    jobsets = []
+    for n in (40, 50):
+        jobs, t = [], 0.0
+        for i in range(n):
+            t += float(rng.exponential(30.0))
+            rt = float(rng.uniform(20, 300))
+            jobs.append(Job(i, t, rt, rt * 1.5,
+                            {"node": int(rng.integers(1, 12)),
+                             "bb": int(rng.integers(0, 6))}))
+        jobsets.append(jobs)
+    fused_mlp_dgrad.launches = fused_mlp_wgrad.launches = 0
+    log = train_agent(agent, res, jobsets)
+    steps = int(agent.opt_state.step)
+    assert steps == 4 * len(log.episode_losses) > 0
+    assert fused_mlp_dgrad.launches == 10 * steps
+    assert fused_mlp_wgrad.launches == 13 * steps
+    assert np.isfinite(log.episode_losses).all()
+    assert np.isfinite(agent.last_grad_norm)
+    assert all(not torch.equal(a, p) for a, p in zip(before,
+                                                     agent.net.parameters()))

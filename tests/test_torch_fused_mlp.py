@@ -1,12 +1,19 @@
-"""The port's fused dense layer against the JAX package's fused-MLP kernel
-(Pallas, interpret mode on the CPU, as tests/test_kernels.py runs it)."""
+"""The port's fused dense layer, forward and backward, against the JAX
+package's fused-MLP kernels (Pallas, interpret mode on the CPU, as
+tests/test_kernels.py runs them)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.fused_mlp.kernel import (fused_mlp_dgrad_layer,
+                                            fused_mlp_wgrad_layer)
 from repro.kernels.fused_mlp.ops import fused_mlp as jax_fused_mlp
-from repro_torch.kernels.fused_mlp import fused_mlp, kernel
+from repro_torch.kernels.fused_mlp import (fused_mlp, fused_mlp_dgrad,
+                                           fused_mlp_dgrad_ref,
+                                           fused_mlp_wgrad,
+                                           fused_mlp_wgrad_ref, kernel)
 from repro_torch.kernels.fused_mlp.ref import ACTIVATIONS
 
 # The JAX package's own tolerances (tests/test_kernels.py::tol).
@@ -72,8 +79,11 @@ def test_rejects_what_the_kernel_does_not_take():
             fused_mlp(x[:0], w, b)
         with pytest.raises(ValueError, match="unknown activation"):
             fused_mlp(x, w, b, activation="gelu")
-    with pytest.raises(RuntimeError, match="no_grad"):
-        fused_mlp(x, w.requires_grad_(), b)
+    # With autograd on, the wrapper is differentiable: the gradient flows.
+    w = w.clone().requires_grad_()
+    fused_mlp(x, w, b).sum().backward()
+    assert w.grad is not None and w.grad.shape == w.shape
+    assert torch.isfinite(w.grad).all() and w.grad.abs().sum() > 0
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 11410, 4000), (16, 11410, 4000),
@@ -84,3 +94,144 @@ def test_split_plan_covers_k(m, k, n):
     assert 1 <= splits <= 65535
     assert (splits - 1) * chunk < k <= splits * chunk   # no empty split
     assert splits == 1 or chunk >= kernel.MIN_SPLIT_ROWS
+
+
+# ------------------------------------------------------------- backward
+# tests/test_kernels.py's gradient grid (DFP_GRAD_SHAPES) and tolerances:
+# float32 at rtol 1e-3, atol 1e-4; bfloat16 at 2e-2.
+GRAD_SHAPES = [(1, 1000, 512), (3, 512, 128), (5, 4000, 1000),
+               (37, 300, 129)]
+GRAD_TOL = {"float32": dict(rtol=1e-3, atol=1e-4),
+            "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def _grad_inputs(m, k, n, seed):
+    """tests/test_kernels.py's scales: x ~ N(0, 1), w * 0.05, b * 0.1, and
+    the cotangent sin(0.37 j) of its ``_grads``."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)
+    b = (rng.standard_normal(n) * 0.1).astype(np.float32)
+    ct = np.sin(np.arange(n) * 0.37).astype(np.float32)
+    return x, w, b, ct
+
+
+@pytest.mark.parametrize("m,k,n", GRAD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ACTIVATIONS)
+def test_backward_matches_reference_vjp(m, k, n, dtype, act):
+    """dx, dW, db of sum(fused_mlp(x, w, b) * ct) against ``jax.grad`` of
+    the JAX package's custom VJP (its dgrad and wgrad Pallas kernels)."""
+    jdt, tdt = DTYPES[dtype]
+    x, w, b, ct = _grad_inputs(m, k, n, seed=m * 31 + n)
+    ref = jax.grad(
+        lambda x, w, b: (jax_fused_mlp(x, w, b, activation=act)
+                         .astype(jnp.float32) * ct).sum(), (0, 1, 2))(
+        *(jnp.asarray(a).astype(jdt) for a in (x, w, b)))
+    tx, tw, tb = (torch.from_numpy(a).to(tdt).requires_grad_()
+                  for a in (x, w, b))
+    (fused_mlp(tx, tw, tb, activation=act).float()
+     * torch.from_numpy(ct)).sum().backward()
+    for got, want, name in zip((tx.grad, tw.grad, tb.grad), ref,
+                               ("dx", "dw", "db")):
+        assert got.dtype == tdt, name
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   err_msg=name, **GRAD_TOL[dtype])
+
+
+def test_backward_skips_what_needs_no_grad(monkeypatch):
+    """A network's input layer: x needs no gradient, so its dgrad is never
+    called, while dW and db are computed."""
+    import repro_torch.kernels.fused_mlp.ops as ops
+    x, w, b, _ = (torch.from_numpy(a) for a in _grad_inputs(4, 20, 8, 0))
+    w.requires_grad_()
+    b.requires_grad_()
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append(args)
+        return fused_mlp_dgrad(*args, **kw)
+
+    monkeypatch.setattr(ops, "fused_mlp_dgrad", spy)
+    fused_mlp(x, w, b, activation="tanh").sum().backward()
+    assert calls == [] and x.grad is None
+    assert w.grad is not None and b.grad is not None
+    x.requires_grad_()
+    fused_mlp(x, w, b, activation="tanh").sum().backward()
+    assert len(calls) == 1 and x.grad is not None
+
+
+def _pad(a, rows, cols):
+    return np.pad(a, ((0, rows - a.shape[0]), (0, cols - a.shape[1])))
+
+
+@pytest.mark.parametrize("act", ACTIVATIONS)
+def test_gradient_refs_match_pallas_kernels(act):
+    """The plain dgrad and wgrad (the CPU path and the card's oracle)
+    against the Pallas dgrad and wgrad kernels themselves, in interpret
+    mode, on operands padded to the kernels' block multiples."""
+    m, k, n = 8, 256, 128
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((5, 200)).astype(np.float32)
+    w = (rng.standard_normal((200, 100)) * 0.05).astype(np.float32)
+    g = rng.standard_normal((5, 100)).astype(np.float32)
+    pre = x @ w
+    y = {"leaky_relu": np.where(pre >= 0, pre, 0.2 * pre),
+         "relu": np.maximum(pre, 0), "tanh": np.tanh(pre),
+         "linear": pre}[act].astype(np.float32)
+    xp, wp, gp, yp = _pad(x, m, k), _pad(w, k, n), _pad(g, m, n), _pad(y, m, n)
+    blocks = dict(block_m=m, block_n=n, block_k=128, interpret=True)
+    dx_ref = fused_mlp_dgrad_layer(jnp.asarray(gp), jnp.asarray(yp),
+                                   jnp.asarray(wp), activation=act, **blocks)
+    dw_ref = fused_mlp_wgrad_layer(jnp.asarray(xp), jnp.asarray(gp),
+                                   jnp.asarray(yp), activation=act, **blocks)
+    tg, ty = torch.from_numpy(gp), torch.from_numpy(yp)
+    dx = fused_mlp_dgrad(tg, ty, torch.from_numpy(wp), activation=act)
+    dw, db = fused_mlp_wgrad(torch.from_numpy(xp), tg, ty, activation=act)
+    assert torch.equal(dx, fused_mlp_dgrad_ref(tg, ty, torch.from_numpy(wp),
+                                               act))
+    ref_dw, ref_db = fused_mlp_wgrad_ref(torch.from_numpy(xp), tg, ty, act)
+    assert torch.equal(dw, ref_dw) and torch.equal(db, ref_db)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(dx_ref),
+                               **GRAD_TOL["float32"])
+    np.testing.assert_allclose(dw.numpy(), np.asarray(dw_ref),
+                               **GRAD_TOL["float32"])
+    # The bias gradient the wgrad also returns: the JAX package's XLA
+    # reduction of g * act'(y) (ops.py's _fused_mlp_bwd_impl).
+    from repro.kernels.fused_mlp.kernel import _activation_grad
+    np.testing.assert_allclose(
+        db.numpy(), np.asarray((gp * _activation_grad(jnp.asarray(yp), act,
+                                                      0.2)).sum(0)),
+        **GRAD_TOL["float32"])
+    # The padding contributes nothing: the unpadded operands give the same
+    # rows and columns.
+    np.testing.assert_allclose(
+        fused_mlp_dgrad_ref(torch.from_numpy(g), torch.from_numpy(y),
+                            torch.from_numpy(w), act).numpy(),
+        np.asarray(dx_ref)[:5, :200], **GRAD_TOL["float32"])
+
+
+def test_gradient_wrappers_reject_what_the_kernels_do_not_take():
+    g = torch.ones(4, 8)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        fused_mlp_dgrad(g, torch.ones(4, 7), torch.ones(16, 8))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        fused_mlp_wgrad(torch.ones(3, 16), g, g)
+    with pytest.raises(TypeError, match="one dtype"):
+        fused_mlp_wgrad(torch.ones(4, 16), g.double(), g)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_mlp_dgrad(g, g, torch.ones(8, 16).t())
+    with pytest.raises(ValueError, match="unknown activation"):
+        fused_mlp_dgrad(g, g, torch.ones(16, 8), activation="gelu")
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 4000, 1000), (64, 1000, 512),
+                                   (64, 768, 512), (64, 128, 128),
+                                   (64, 512, 12), (1, 4000, 1000),
+                                   (128, 4000, 1000)])
+def test_dgrad_split_plan_covers_n(m, k, n):
+    splits, chunk = kernel.dgrad_split_plan(m, k, n, sm_count=132)
+    assert 1 <= splits <= 65535 and chunk % kernel.DGRAD_STEP_N == 0
+    assert (splits - 1) * chunk < n <= splits * chunk   # no empty split
+    assert splits == 1 or chunk >= kernel.MIN_SPLIT_COLS

@@ -56,5 +56,8 @@ def test_scan_covers_every_slice():
                  "repro_torch.kernels._build",
                  "repro_torch.sim.device",
                  "repro_torch.core.policy_api",
-                 "repro_torch.core.policies"):
+                 "repro_torch.core.policies",
+                 "repro_torch.core.replay",
+                 "repro_torch.core.train",
+                 "repro_torch.nn.optim"):
         assert name in MODULES, name
