@@ -8,8 +8,8 @@ prints its wall seconds:
 
 1. environment: card name and power limit, torch and CUDA versions; TF32
    off for matmuls and convolutions;
-2. build: compile the fused-MLP and window-pack kernel libraries with
-   nvcc (sm_90a), one nvcc per source, started together;
+2. build: compile the fused-MLP, window-pack and masked-attention kernel
+   libraries with nvcc (sm_90a), one nvcc per source, started together;
 3. fused-MLP parity: the kernel against its plain PyTorch version at every
    DFP layer shape, M in {1, 2, 4, 8, 16, 37, 64}, all four activations,
    float32 (rtol = atol = 2e-4) and bfloat16 (2e-2);
@@ -31,10 +31,10 @@ prints its wall seconds:
    environments, the paper-width agent over one trace, and the decoded
    event trace of an integer-time trace;
 8. device-engine path: greedy ``DeviceSimulator.rollout()`` of the
-   paper-width agent over 64 full-scale S1 traces (warm-up, then the
-   median of 3), with ``pack_window`` launched once and the fused MLP 13
-   times per deciding round, a ``torch.profiler`` busy share, and one
-   epsilon-greedy collection rollout;
+   paper-width agent over 64 full-scale S1 traces (warm-up, then one
+   timed rollout), with ``pack_window`` launched once and the fused MLP 13
+   times per deciding round, a ``torch.profiler`` busy share (device
+   activity only), and one epsilon-greedy collection rollout;
 9. fused-MLP backward parity: the dgrad and wgrad kernels against their
    plain versions at the 13 DFP layer shapes, M in {1, 16, 37, 64, 128},
    all four activations, float32 (rtol 1e-3, atol 1e-4) and bfloat16
@@ -50,7 +50,28 @@ prints its wall seconds:
    versions and timed on the operands of one train step of the path,
    each beside its bound, its plain version and ``torch.mm`` on the
    act'-scaled gradient (the library yardstick, which the port never
-   calls).
+   calls);
+11. masked-attention parity (phase 2 builds its two libraries):
+   ``mha_fwd`` and the two backward kernels against their
+   plain versions over (BH, S, dh) up to (256, 129, 16) and dh 8-64,
+   lengths 0, 1, S//2 and S among them, and a fully masked case;
+12. the attention state module (``state_module="attention"``, Q = 128,
+   the reference's default attention agent, 1,383,428 parameters) on
+   traces of full-scale S1 at 400 jobs/day for one day, whose queues
+   reach past Q: the service path of 6 (25 fused-MLP and 2 ``mha``
+   launches per forward; every served decision against the plain
+   backend under a top-2-margin guard), device-engine parity and the
+   device-engine path of 7-8 (25, 2 and 1 ``window_pack`` per deciding
+   round, the pack at K = Q; the median of 3 rollouts, no collection
+   rollout), the training path of 10 (25 forward, 21
+   dgrad, 25 wgrad, 2 of each attention kernel per step; 60 gradient
+   leaves on both backends);
+13. the attention kernels, and ``window_pack`` at K = Q, on the operands
+   one more device rollout and a train step give them: held against their
+   plain versions (window_pack bit for bit) and timed beside
+   their bounds (over the valid keys, and dense), their plain versions
+   and ``scaled_dot_product_attention`` with the same key mask and its
+   backward (the library yardstick, which the port never calls).
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -110,6 +131,30 @@ WP_DENSITIES = (0.0, 0.05, 0.4, 1.0)
 WP_TIMING = [(64, 358, 4, 10), (512, 2048, 4, 10)]
 DEVICE_ENVS = 64                 # environments of the device-engine path
 
+MHA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/mha.cu"
+MHA_BWD_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/mha_bwd.cu"
+MHA_REPLACES = "src/repro/kernels/flash_attention/kernel.py:125"
+MHA_BWD_REPLACES = "src/repro/kernels/flash_attention/kernel.py:216"
+# (BH, S, dh): the attention state module's (4 heads x batch rows, 1 + Q,
+# 16) at batch 1, 8 and 64, and the other instantiated head dims.
+MHA_GRID = [(4, 129, 16), (32, 129, 16), (256, 129, 16), (8, 49, 8),
+            (8, 257, 32), (8, 65, 64)]
+MHA_TOL = {"mha_fwd": 2e-5, "mha_bwd_dq": 1e-4, "mha_bwd_dkv": 1e-4}
+
+# Launches per unit of work, by kernel.  A forward of the paper-width MLP
+# agent runs B1 13 times; one of the attention agent 25 times (tok, ctx,
+# 6 per encoder layer x 2, out; 3 + 3 + 2 + 2 in the other modules) and
+# B5 twice (one per encoder layer).  A train step adds the backward: dx
+# for every layer but the three (MLP) or four (attention: tok, ctx and
+# the measurement and goal input layers) whose input needs none.
+KERNELS = ("forward", "dgrad", "wgrad", "window_pack", "mha", "mha_bwd_dq",
+           "mha_bwd_dkv")
+MLP_FORWARD = {"forward": 13}
+ATTN_FORWARD = {"forward": 25, "mha": 2}
+MLP_STEP = {"forward": 13, "dgrad": 10, "wgrad": 13}
+ATTN_STEP = {"forward": 25, "dgrad": 21, "wgrad": 25, "mha": 2,
+             "mha_bwd_dq": 2, "mha_bwd_dkv": 2}
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -143,16 +188,19 @@ def timed(name: str, fn, *args):
 
 
 def phase_build() -> None:
-    """The three kernel libraries, one nvcc per source, started together."""
+    """The five kernel libraries, one nvcc per source, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.fused_mlp import kernel as fm
     from repro_torch.kernels.window_pack import kernel as wp
-    builds = (fm.build, fm.build_backward, wp.build)
+    builds = (fm.build, fm.build_backward, wp.build, fa.build,
+              fa.build_backward)
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         futures = [pool.submit(b) for b in builds]
         infos = [f.result() for f in futures]
-    for load in (fm._library, fm._backward_library, wp._library):
+    for load in (fm._library, fm._backward_library, wp._library,
+                 fa._library, fa._backward_library):
         load()
     for info in infos:
         log(f"[build] {info.library.name}: {info.seconds:.3f} s of nvcc")
@@ -242,6 +290,82 @@ def phase_window_pack_parity() -> float:
     return err
 
 
+def mha_case(bh: int, s: int, dh: int, gen) -> tuple:
+    """q, k, v, do (BH, S, dh) on the card and lengths 0, 1, S//2 and S,
+    then random (BH < 4 takes the first BH of those)."""
+    q, k, v, do = (torch.randn(bh, s, dh, generator=gen, device="cuda")
+                   for _ in range(4))
+    lens = torch.randint(0, s + 1, (bh,), generator=gen,
+                         device="cuda").float()
+    lens[:4] = torch.tensor([0.0, 1.0, s // 2, s], device="cuda")[:bh]
+    return q, k, v, do, lens
+
+
+def mha_check(q, k, v, do, lens, what: str) -> dict:
+    """B5 and both B6 kernels against their plain versions on one input
+    (the backward from the plain forward's lse and delta); returns each
+    kernel's largest absolute difference.  Rows of length 0 and keys past
+    a row's length must come out exactly 0, and everything finite."""
+    from repro_torch.kernels.flash_attention import (mha_bwd_dkv, mha_bwd_dq,
+                                                     mha_bwd_ref, mha_fwd,
+                                                     mha_fwd_ref)
+    o, lse = mha_fwd(q, k, v, lens)
+    ro, rlse = mha_fwd_ref(q, k, v, lens)
+    delta = (do * ro).sum(-1)
+    dq = mha_bwd_dq(q, k, v, do, rlse, delta, lens)
+    dk, dv = mha_bwd_dkv(q, k, v, do, rlse, delta, lens)
+    rdq, rdk, rdv = mha_bwd_ref(q, k, v, do, rlse, delta, lens)
+    torch.cuda.synchronize()
+    valid = lens > 0
+    kmask = torch.arange(k.shape[1], device="cuda")[None, :] >= lens[:, None]
+    errs = {}
+    for name, got, ref, zero in (
+            ("mha_fwd", (o, lse[valid]), (ro, rlse[valid]), (o[~valid],)),
+            ("mha_bwd_dq", (dq,), (rdq,), (dq[~valid],)),
+            ("mha_bwd_dkv", (dk, dv), (rdk, rdv), (dk[kmask], dv[kmask]))):
+        err = max(float((a - b).abs().max()) if a.numel() else 0.0
+                  for a, b in zip(got, ref))
+        if not err <= MHA_TOL[name]:
+            raise AssertionError(f"[mha parity] {name} {what}: max abs err "
+                                 f"{err} > {MHA_TOL[name]}")
+        if not all(torch.isfinite(t).all() for t in got):
+            raise AssertionError(f"[mha parity] {name} {what}: non-finite")
+        if any(t.numel() and t.abs().max() != 0 for t in zero):
+            raise AssertionError(f"[mha parity] {name} {what}: masked "
+                                 f"rows or keys not exactly 0")
+        errs[name] = err
+    if not (torch.isfinite(lse).all() and (lse[~valid] < -1e29).all()):
+        raise AssertionError(f"[mha parity] {what}: lse of masked rows")
+    return errs
+
+
+def phase_mha_parity() -> dict:
+    """The attention kernels against their plain versions over MHA_GRID,
+    then a fully masked case through ``mha`` and its gradient; returns
+    each kernel's worst absolute error."""
+    from repro_torch.kernels.flash_attention import mha
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = dict.fromkeys(MHA_TOL, 0.0)
+    for bh, s, dh in MHA_GRID:
+        errs = mha_check(*mha_case(bh, s, dh, gen), f"BH={bh} S={s} dh={dh}")
+        worst = {k: max(worst[k], errs[k]) for k in worst}
+    q, k, v, _, _ = mha_case(8, 129, 16, gen)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    out = mha(q, k, v, torch.zeros(8, device="cuda"))
+    grads = torch.autograd.grad(out.sum(), (q, k, v))
+    torch.cuda.synchronize()
+    for t in (out, *grads):
+        assert torch.isfinite(t).all() and not t.abs().max(), \
+            "[mha parity] a fully masked case is not exactly 0"
+    log(f"[mha parity] {len(MHA_GRID)} shapes (BH, S, dh) {MHA_GRID}, "
+        f"lengths 0, 1, S//2, S and random: worst abs err mha_fwd "
+        f"{worst['mha_fwd']!r} (tol 2e-5), mha_bwd_dq "
+        f"{worst['mha_bwd_dq']!r}, mha_bwd_dkv {worst['mha_bwd_dkv']!r} "
+        f"(tol 1e-4); masked rows and keys exactly 0; a fully masked "
+        f"(8, 129, 16) output and its three gradients exactly 0")
+    return worst
+
+
 def wp_bound(waiting: torch.Tensor, f: int, w: int) -> tuple:
     """(bytes, operations) times of one window pack, in ms, for this
     data: each row's waiting mask read up to its W-th waiting job (all of
@@ -278,11 +402,12 @@ def phase_window_pack_timing() -> None:
             f"computes it")
 
 
-def phase_window_pack_main_path(sim) -> dict:
+def phase_window_pack_main_path(sim, tag="window_pack main path") -> dict:
     """``window_pack`` on the inputs the device engine's main path gives
     it: one more greedy rollout records every round's (waiting, feats);
     each round is held against the plain version bit for bit, and the
-    round with the median number of waiting jobs is timed.  The launches
+    round with the median number of waiting jobs is timed.  The pack
+    takes K = W slots, or K = Q for the attention layout.  The launches
     made here are not counted: the main path's count was read before."""
     from repro_torch.kernels.window_pack import (pack_window,
                                                  pack_window_reference)
@@ -307,17 +432,18 @@ def phase_window_pack_main_path(sim) -> dict:
     t_med = int(torch.argsort(n_wait)[len(calls) // 2])
     waiting, feats, w = calls[t_med]
     n, j, f = feats.shape
+    k = lay.queue_cap if lay.state_module == "attention" else lay.window
     assert (n, j, f, w) == (lay.n_envs, lay.n_jobs, lay.n_resources + 2,
-                            lay.window), ((n, j, f, w), lay)
+                            k), ((n, j, f, w), lay)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     t_k = device_ms(lambda: pack_window(waiting, feats, window=w), flush)
     t_p = device_ms(lambda: pack_window_reference(waiting, feats, window=w),
                     flush)
     b_ms, o_ms = wp_bound(waiting, f, w)
     by = "bytes" if b_ms >= o_ms else "operations"
-    log(f"[window_pack main path] {len(calls)} rounds at N={n} J={j} F={f} "
+    log(f"[{tag}] {len(calls)} rounds at N={n} J={j} F={f} "
         f"W={w} bit-identical to the plain version; max abs err {err!r}")
-    log(f"[window_pack main path] round {t_med} ({int(n_wait[t_med])} jobs "
+    log(f"[{tag}] round {t_med} ({int(n_wait[t_med])} jobs "
         f"waiting, the median): kernel {t_k:.4f} ms  plain {t_p:.4f} ms  "
         f"bound {max(b_ms, o_ms):.6f} ms ({by})")
     return {"shape": (n, j, f, w), "rounds": len(calls), "max_abs_err": err,
@@ -462,50 +588,52 @@ def phase_timing(agent) -> dict:
 
 class SampledPolicy:
     """ServicePolicy that also keeps every ``every``-th served row and the
-    action the service gave it."""
+    action the service gave it, and every decision's queue length."""
 
     def __init__(self, service, sink: list, every: int):
         from repro_torch.serve import ServicePolicy
         self._inner = ServicePolicy(service, track_latency=True)
         self.latencies_s = self._inner.latencies_s
         self.service, self.sink, self.every, self.n = service, sink, every, 0
+        self.queue_lens: list = []
 
     def select(self, ctx) -> int:
         action = self._inner.select(ctx)
         if self.n % self.every == 0:
             self.sink.append((self.service._encode(ctx), action))
+        self.queue_lens.append(ctx.queue_len)
         self.n += 1
         return action
 
 
-def phase_main_path(agent) -> dict:
+def phase_main_path(agent, trace=None, per_forward=MLP_FORWARD,
+                    every=(25, 50), tag="main") -> dict:
+    """The decision service: one client replays the trace of seed 0, then
+    eight client threads the traces of seeds 1-8 (``trace(seed)``, by
+    default ``s1_trace``); ``every`` sets which served rows of each are
+    held against the plain backend."""
     from repro_torch.core.dfp import action_values
-    from repro_torch.kernels.fused_mlp import fused_mlp
     from repro_torch.serve import DecisionService, ServeConfig, ServiceSim
-    from repro_torch.workloads import ThetaConfig, build_scenarios
 
-    def s1(seed: int):
-        cfg = ThetaConfig(duration_days=2.0, jobs_per_day=160.0, seed=seed)
-        return cfg.resources(), build_scenarios(cfg, ("S1",))["S1"]
-
-    res, jobs_a = s1(0)
-    traces_b = [s1(seed)[1] for seed in range(1, 9)]
-    assert agent.enc.state_dim == 11410, agent.enc.state_dim
+    trace = trace or s1_trace
+    res, jobs_a = trace(0)
+    traces_b = [trace(seed)[1] for seed in range(1, 9)]
     sampled: list = []
 
     svc = DecisionService(agent, ServeConfig(max_batch=16))
-    fused_mlp.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     svc.start()                                      # warm-up forwards
     warm_s = time.perf_counter() - t0
 
     # (a) one trace, one client
     ssim = ServiceSim(svc, res)
-    ssim.policy = SampledPolicy(svc, sampled, every=25)
+    ssim.policy = SampledPolicy(svc, sampled, every=every[0])
     t0 = time.perf_counter()
     res_a = ssim.run_trace(jobs_a)
     wall_a = time.perf_counter() - t0
     lat_a = list(ssim.policy.latencies_s)
+    qlens = list(ssim.policy.queue_lens)
     hist_a = svc.stats()["batch_hist"]
 
     # (b) eight clients, one trace each, concurrently
@@ -514,9 +642,10 @@ def phase_main_path(agent) -> dict:
     def client(i: int) -> None:
         try:
             sim = ServiceSim(svc, res)
-            sim.policy = SampledPolicy(svc, sampled, every=50)
+            sim.policy = SampledPolicy(svc, sampled, every=every[1])
             results_b[i] = sim.run_trace(traces_b[i])
             lat_b.extend(sim.policy.latencies_s)
+            qlens.extend(sim.policy.queue_lens)
         except BaseException as e:                   # re-raised below
             errors.append(e)
 
@@ -532,14 +661,16 @@ def phase_main_path(agent) -> dict:
     assert all(not t.is_alive() for t in threads), "client threads hung"
     svc.stop()
     torch.cuda.synchronize()
-    launches = fused_mlp.launches
+    counts = launch_counts()
     stats = svc.stats()
 
-    # Launches: 13 dense layers per forward, one forward per dispatch
-    # (warm-up widths + served batches).
+    # Launches: ``per_forward`` of each kernel per forward, one forward per
+    # dispatch (warm-up widths + served batches).
     forwards = stats["buckets"]["dispatches"]
     assert forwards == len(svc._buckets.widths) + stats["batches"], stats
-    assert launches > 0 and launches == 13 * forwards, (launches, forwards)
+    assert forwards > 0 and counts == times(per_forward, forwards), \
+        (counts, forwards)
+    launches = counts["forward"]
 
     dec_a = res_a.decisions
     dec_b = sum(r.decisions for r in results_b)
@@ -582,7 +713,8 @@ def phase_main_path(agent) -> dict:
 
     lat = np.asarray(lat_a + lat_b) * 1e3
     out = {
-        "launches": launches, "forwards": forwards,
+        "launches": launches, "counts": counts, "forwards": forwards,
+        "queue_mean": float(np.mean(qlens)), "queue_max": int(max(qlens)),
         "batches": stats["batches"], "warmup_s": warm_s,
         "decisions_a": dec_a, "wall_a_s": wall_a,
         "decisions_b": dec_b, "wall_b_s": wall_b,
@@ -597,19 +729,22 @@ def phase_main_path(agent) -> dict:
         "sampled": int(rows.shape[0]), "decisive": int(decisive.sum()),
         "u_err": err, "u_tol": tol, "metrics_a": res_a.metrics.as_row(),
     }
-    log(f"[main] warm-up {warm_s:.3f} s; fused_mlp launches {launches} = 13 x "
-        f"{forwards} forwards ({len(svc._buckets.widths)} warm-up + "
-        f"{stats['batches']} batches)")
-    log(f"[main] (a) 1 client: {dec_a} decisions in {wall_a:.3f} s = "
+    per = ", ".join(f"{k} {v}" for k, v in per_forward.items())
+    log(f"[{tag}] warm-up {warm_s:.3f} s; launches {json.dumps(counts)} = "
+        f"({per}) x {forwards} forwards ({len(svc._buckets.widths)} warm-up "
+        f"+ {stats['batches']} batches)")
+    log(f"[{tag}] queue length over {len(qlens)} decisions: mean "
+        f"{out['queue_mean']:.2f}, max {out['queue_max']}")
+    log(f"[{tag}] (a) 1 client: {dec_a} decisions in {wall_a:.3f} s = "
         f"{out['dps_a']:.1f} decisions/s; latency p50 {out['p50_a_ms']:.3f} "
         f"ms p99 {out['p99_a_ms']:.3f} ms; batch sizes {hist_a}")
-    log(f"[main] (b) 8 clients: {dec_b} decisions in {wall_b:.3f} s = "
+    log(f"[{tag}] (b) 8 clients: {dec_b} decisions in {wall_b:.3f} s = "
         f"{out['dps_b']:.1f} decisions/s; latency p50 {out['p50_b_ms']:.3f} "
         f"ms p99 {out['p99_b_ms']:.3f} ms; batch sizes {hist_b}")
-    log(f"[main] sampled {out['sampled']} served rows: kernel vs torch "
+    log(f"[{tag}] sampled {out['sampled']} served rows: kernel vs torch "
         f"action values max abs err {err!r} (tol {tol!r}); argmax equal on "
         f"all {out['decisive']} rows with top-2 margin > tol")
-    log(f"[main] (a) ScheduleMetrics {json.dumps(res_a.metrics.as_row())}")
+    log(f"[{tag}] (a) ScheduleMetrics {json.dumps(res_a.metrics.as_row())}")
     return out
 
 
@@ -673,12 +808,18 @@ def phase_breakdown(agent, n_decisions: int = 300) -> dict:
     return out
 
 
-def s1_trace(seed: int):
-    """Full-scale Theta S1, 2 days at 160 jobs/day (the service path's
-    traces)."""
+def s1_trace(seed: int, days: float = 2.0, per_day: float = 160.0):
+    """Full-scale Theta S1, by default 2 days at 160 jobs/day (the MLP
+    agent's traces)."""
     from repro_torch.workloads import ThetaConfig, build_scenarios
-    cfg = ThetaConfig(duration_days=2.0, jobs_per_day=160.0, seed=seed)
+    cfg = ThetaConfig(duration_days=days, jobs_per_day=per_day, seed=seed)
     return cfg.resources(), build_scenarios(cfg, ("S1",))["S1"]
+
+
+def attn_trace(seed: int):
+    """Full-scale Theta S1, 1 day at 400 jobs/day: the attention agent's
+    traces, whose queues reach past Q = 128."""
+    return s1_trace(seed, days=1.0, per_day=400.0)
 
 
 class Recorder:
@@ -718,7 +859,6 @@ def assert_results_close(a, b, rtol=1e-5, atol=1e-2) -> None:
 def phase_device_parity(agent) -> dict:
     """The device engine against the sequential engine at full width."""
     from repro_torch.core import FCFSPolicy
-    from repro_torch.core.dfp import action_values
     from repro_torch.obs.trace import BufferTracer, canonical_events
     from repro_torch.sim import DeviceSimulator, SimConfig, Simulator
 
@@ -737,6 +877,36 @@ def phase_device_parity(agent) -> dict:
 
     # (b) the paper-width agent (kernel backend), one environment.
     res, jobs = traces[0]
+    n_cmp, n_dec = agent_device_parity(agent, res, jobs,
+                                       "(b) paper-width agent")
+
+    # (c) the decoded event trace, FCFS on an integer-time trace.
+    int_jobs = []
+    for job in jobs:
+        job = job.copy()
+        job.submit = float(round(job.submit))
+        job.runtime = float(max(1, round(job.runtime)))
+        job.walltime = float(max(round(job.walltime), job.runtime))
+        int_jobs.append(job)
+    t_seq, t_dev = BufferTracer(), BufferTracer()
+    Simulator(res, int_jobs, FCFSPolicy(), SimConfig(), tracer=t_seq).run()
+    ds = DeviceSimulator(res, [int_jobs], FCFSPolicy())
+    ds.emit_trace(ds.rollout(trace=True), t_dev)
+    ev_seq = canonical_events(t_seq.events)
+    assert len(ev_seq) > 0 and ev_seq == canonical_events(t_dev.events), \
+        "device trace differs from the sequential engine's"
+    log(f"[device parity] (c) emit_trace: {len(ev_seq)} canonical events "
+        f"equal to the sequential engine's")
+    return {"agent_compared": n_cmp, "agent_decisions": n_dec}
+
+
+def agent_device_parity(agent, res, jobs, what: str, tag="device parity"):
+    """The agent (kernel backend) over one trace on the sequential engine
+    and on the device engine as one environment: equal actions up to the
+    first decision whose top-2 margin on the plain backend is within the
+    tolerance, and close results when the whole sequences are equal."""
+    from repro_torch.core.dfp import action_values
+    from repro_torch.sim import DeviceSimulator, SimConfig, Simulator
     rec = Recorder(agent)
     seq = Simulator(res, jobs, rec, SimConfig()).run()
     dev = DeviceSimulator(res, [jobs], agent)
@@ -761,46 +931,33 @@ def phase_device_parity(agent) -> dict:
     margin = top2[:, 1] - top2[:, 0]              # inf with one valid slot
     ties = np.flatnonzero(margin <= tol)
     n_cmp = int(ties[0]) if len(ties) else len(dev_actions)
-    assert dev_actions[:n_cmp] == rec.actions[:n_cmp], "agent actions"
+    assert n_cmp > 0 and dev_actions[:n_cmp] == rec.actions[:n_cmp], \
+        "agent actions"
     full = dev_actions == rec.actions
     if full:
         assert_results_close(seq, ro.results[0])
-    log(f"[device parity] (b) paper-width agent, 1 environment: "
+    log(f"[{tag}] {what}, 1 environment: "
         f"{n_cmp} of {len(dev_actions)} decisions compared (first top-2 "
         f"margin <= tol {tol!r}: "
         f"{'none' if not len(ties) else int(ties[0])}); actions equal; "
         + ("whole sequences equal and results close" if full else
            "sequences part after a near-tie, results not compared"))
-
-    # (c) the decoded event trace, FCFS on an integer-time trace.
-    int_jobs = []
-    for job in jobs:
-        job = job.copy()
-        job.submit = float(round(job.submit))
-        job.runtime = float(max(1, round(job.runtime)))
-        job.walltime = float(max(round(job.walltime), job.runtime))
-        int_jobs.append(job)
-    t_seq, t_dev = BufferTracer(), BufferTracer()
-    Simulator(res, int_jobs, FCFSPolicy(), SimConfig(), tracer=t_seq).run()
-    ds = DeviceSimulator(res, [int_jobs], FCFSPolicy())
-    ds.emit_trace(ds.rollout(trace=True), t_dev)
-    ev_seq = canonical_events(t_seq.events)
-    assert len(ev_seq) > 0 and ev_seq == canonical_events(t_dev.events), \
-        "device trace differs from the sequential engine's"
-    log(f"[device parity] (c) emit_trace: {len(ev_seq)} canonical events "
-        f"equal to the sequential engine's")
-    return {"agent_compared": n_cmp, "agent_decisions": len(dev_actions)}
+    return n_cmp, len(dev_actions)
 
 
-def phase_device_main(agent) -> dict:
-    """Greedy rollouts of the paper-width agent over 64 full-scale S1
-    traces: the device engine's main path."""
+def phase_device_main(agent, trace=None, per_forward=MLP_FORWARD,
+                      tag="device", reps=3, collect=True) -> dict:
+    """Greedy rollouts of the agent over 64 full-scale S1 traces
+    (``trace(seed)`` for seeds 1-64, by default ``s1_trace``): the device
+    engine's main path, one warm-up and the median of ``reps``; one more
+    under the profiler (device activity only: with the host's operators
+    too, the profile's summary alone took 215.6 s of the MLP agent's
+    rollout); with ``collect``, an epsilon-greedy collection rollout."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels.fused_mlp import fused_mlp
-    from repro_torch.kernels.window_pack import pack_window
     from repro_torch.sim import DeviceSimulator
 
-    traces = [s1_trace(seed) for seed in range(1, DEVICE_ENVS + 1)]
+    trace = trace or s1_trace
+    traces = [trace(seed) for seed in range(1, DEVICE_ENVS + 1)]
     res = traces[0][0]
     t0 = time.perf_counter()
     sim = DeviceSimulator(res, [j for _, j in traces], agent)
@@ -808,19 +965,19 @@ def phase_device_main(agent) -> dict:
     lay = sim.layout
     sim.rollout()                                    # warm-up
     walls, launches = [], None
-    for rep in range(3):
+    for rep in range(reps):
         torch.cuda.synchronize()
         if rep == 0:
-            pack_window.launches = fused_mlp.launches = 0
+            reset_launch_counts()
         t0 = time.perf_counter()
         ro = sim.rollout()
         walls.append(time.perf_counter() - t0)
         if rep == 0:
-            launches = {"window_pack": pack_window.launches,
-                        "fused_mlp": fused_mlp.launches}
+            launches = launch_counts()
     st = ro.stats
-    assert launches["window_pack"] == st.rounds > 0, (launches, st)
-    assert launches["fused_mlp"] == 13 * st.rounds, (launches, st)
+    per_round = {**per_forward, "window_pack": 1}
+    assert st.rounds > 0 and launches == times(per_round, st.rounds), \
+        (launches, st)
     results = ro.results
     for r in results:
         row = r.metrics.as_row()
@@ -834,22 +991,22 @@ def phase_device_main(agent) -> dict:
            "dps": st.decisions / wall, "rps": st.rounds_run / wall,
            "syncs_per_round": st.host_syncs / st.rounds_run,
            "launches": launches, "pack_s": pack_s}
-    log(f"[device] N={lay.n_envs} environments, J={lay.n_jobs} jobs, "
+    log(f"[{tag}] N={lay.n_envs} environments, J={lay.n_jobs} jobs, "
         f"U={lay.n_units} units, state_dim {lay.state_dim}; packed in "
         f"{pack_s:.3f} s; round budget {lay.rounds}")
-    log(f"[device] greedy rollout (median of 3, {', '.join(f'{w:.3f}' for w in walls)} s): "
+    log(f"[{tag}] greedy rollout (median of {reps}, {', '.join(f'{w:.3f}' for w in walls)} s): "
         f"{st.rounds_run} rounds ({st.rounds} deciding), {st.decisions} "
         f"decisions in {wall:.3f} s = {out['dps']:.1f} decisions/s, "
         f"{out['rps']:.1f} rounds/s; host syncs {st.host_syncs} = "
         f"{out['syncs_per_round']:.3f} per round")
-    log(f"[device] launches in one rollout: window_pack "
-        f"{launches['window_pack']} = deciding rounds, fused_mlp "
-        f"{launches['fused_mlp']} = 13 x {st.rounds}")
-    log(f"[device] env 0 ScheduleMetrics "
+    per = ", ".join(f"{k} {v}" for k, v in per_round.items())
+    log(f"[{tag}] launches in one rollout: {json.dumps(launches)} = ({per})"
+        f" x {st.rounds} deciding rounds")
+    log(f"[{tag}] env 0 ScheduleMetrics "
         f"{json.dumps(results[0].metrics.as_row())}")
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         sim.rollout()
     events = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
@@ -859,14 +1016,18 @@ def phase_device_main(agent) -> dict:
     # each round costs the host to launch.
     issued = sum(e.count for e in events)
     out["device_ops_per_round"] = issued / sim.stats.rounds_run
-    log(f"[device] device kernels (torch.profiler, one more rollout) "
+    log(f"[{tag}] device kernels (torch.profiler, device activity, one "
+        f"more rollout: {time.perf_counter() - t0:.1f} s with the profile's "
+        f"summary) "
         f"{busy_ms:.3f} ms = busy share {out['device_busy_share']:.4f} of "
         f"the median rollout's wall time; {issued} device operations "
         f"issued = {out['device_ops_per_round']:.1f} per round")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
-        log(f"[device]   {e.self_device_time_total / 1e3:9.3f} ms "
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"x{e.count:6d}  {e.key[:90]}")
 
+    if not collect:
+        return out, sim
     # Collection mode: epsilon-greedy with the decision rows kept.
     t0 = time.perf_counter()
     ro = sim.rollout(eps=0.1, seed=0, collect=True)
@@ -878,7 +1039,7 @@ def phase_device_main(agent) -> dict:
         assert row.shape == (width,) and 0 <= a < lay.window
         n_rows += 1
     assert n_rows == ro.stats.decisions > 0, (n_rows, ro.stats)
-    log(f"[device] collection rollout (eps 0.1): every job of every "
+    log(f"[{tag}] collection rollout (eps 0.1): every job of every "
         f"environment scheduled; {n_rows} transitions of width {width} in "
         f"{collect_s:.3f} s")
     return out, sim
@@ -958,28 +1119,43 @@ def phase_backward_parity(agent) -> dict:
     return {kind: worst[kind, torch.float32] for kind in ("dgrad", "wgrad")}
 
 
-def launch_counts() -> dict:
+def _counted() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from repro_torch.kernels.flash_attention import (mha, mha_bwd_dkv,
+                                                     mha_bwd_dq)
     from repro_torch.kernels.fused_mlp import (fused_mlp, fused_mlp_dgrad,
                                                fused_mlp_wgrad)
-    return {"forward": fused_mlp.launches, "dgrad": fused_mlp_dgrad.launches,
-            "wgrad": fused_mlp_wgrad.launches}
+    from repro_torch.kernels.window_pack import pack_window
+    return dict(zip(KERNELS, (fused_mlp, fused_mlp_dgrad, fused_mlp_wgrad,
+                              pack_window, mha, mha_bwd_dq, mha_bwd_dkv)))
+
+
+def launch_counts() -> dict:
+    return {k: w.launches for k, w in _counted().items()}
 
 
 def reset_launch_counts() -> None:
-    from repro_torch.kernels.fused_mlp import (fused_mlp, fused_mlp_dgrad,
-                                               fused_mlp_wgrad)
-    fused_mlp.launches = fused_mlp_dgrad.launches = 0
-    fused_mlp_wgrad.launches = 0
+    for w in _counted().values():
+        w.launches = 0
 
 
-def phase_training() -> tuple:
-    """Sequential DFP training at paper width: the training path.  Returns
-    the path's launch counts and the trained agent."""
+def times(per: dict, n: int) -> dict:
+    """Expected launch counts of every kernel for ``n`` units of work that
+    launch ``per`` each (kernels not named launch none)."""
+    return {k: per.get(k, 0) * n for k in KERNELS}
+
+
+def phase_training(config=None, trace=None, per_step=MLP_STEP,
+                   per_forward=MLP_FORWARD, tag="train") -> tuple:
+    """Sequential DFP training at full width: the training path, by default
+    of the paper-width MLP agent on ``s1_trace``.  Returns the path's
+    launch counts and the trained agent."""
     from repro_torch.convert import leaves
     from repro_torch.core import AgentConfig, MRSchAgent, train_agent
-    traces = [s1_trace(seed) for seed in TRAIN_SEEDS]
+    trace = trace or s1_trace
+    traces = [trace(seed) for seed in TRAIN_SEEDS]
     res = traces[0][0]
-    agent = MRSchAgent(res, AgentConfig(seed=0))
+    agent = MRSchAgent(res, config or AgentConfig(seed=0))
     cfg = agent.config
     assert (cfg.batch_size, cfg.grad_steps_per_episode, cfg.lr,
             cfg.grad_clip) == (64, 64, 1e-4, 10.0), cfg
@@ -1008,35 +1184,36 @@ def phase_training() -> tuple:
     steps = sum(b["steps"] for b in bursts)
     assert len(bursts) == len(traces) and steps == int(agent.opt_state.step)
     for b in bursts:
-        n = b["steps"]
-        assert b["launches"] == {"forward": 13 * n, "dgrad": 10 * n,
-                                 "wgrad": 13 * n}, b
+        assert b["launches"] == times(per_step, b["steps"]), b
         assert math.isfinite(b["loss"]) and math.isfinite(b["grad_norm"]), b
-    assert launches["dgrad"] == 10 * steps and launches["wgrad"] == 13 * steps
-    greedy_fwd = launches["forward"] - 13 * steps
-    assert greedy_fwd >= 0 and greedy_fwd % 13 == 0, launches
+    # The rest are the greedy decisions' forwards.
+    greedy = launches["forward"] - per_step["forward"] * steps
+    n_greedy = greedy // per_forward["forward"]
+    assert greedy >= 0 and launches == {
+        k: times(per_step, steps)[k] + times(per_forward, n_greedy)[k]
+        for k in KERNELS}, launches
     assert log_.episode_losses == [b["loss"] for b in bursts]
     moved = [not torch.equal(a, p) for a, (_, p) in zip(before,
                                                         leaves(agent.net))]
     assert all(moved), f"{moved.count(False)} parameters did not move"
     del before
     collect_s = log_.wall_seconds - sum(b["wall_s"] for b in bursts)
-    log(f"[train] train_agent over {len(traces)} full-scale S1 traces (seeds "
+    log(f"[{tag}] train_agent over {len(traces)} full-scale S1 traces (seeds "
         f"{TRAIN_SEEDS}): {log_.decisions} decisions, {steps} train steps in "
         f"{len(bursts)} bursts, {log_.wall_seconds:.3f} s; epsilon now "
         f"{agent.epsilon!r}")
-    log(f"[train] launches: forward {launches['forward']} = 13 x {steps} "
-        f"steps + 13 x {greedy_fwd // 13} greedy decisions; dgrad "
-        f"{launches['dgrad']} = 10 x {steps}; wgrad {launches['wgrad']} = "
-        f"13 x {steps}; every burst exactly 13 / 10 / 13 per step")
+    per = ", ".join(f"{k} {v}" for k, v in per_step.items())
+    log(f"[{tag}] launches: {json.dumps(launches)} = ({per}) x {steps} "
+        f"steps + {n_greedy} greedy forwards; every burst exactly ({per}) "
+        f"per step")
     for i, b in enumerate(bursts):
-        log(f"[train] burst {i}: {b['steps']} steps in {b['wall_s']:.4f} s "
+        log(f"[{tag}] burst {i}: {b['steps']} steps in {b['wall_s']:.4f} s "
             f"({b['wall_s'] / b['steps'] * 1e3:.4f} ms per step, sampling "
             f"and copy included); loss {b['loss']!r}, grad norm "
             f"{b['grad_norm']!r}")
-    log(f"[train] collection: {log_.decisions} decisions in {collect_s:.3f} s "
-        f"= {log_.decisions / collect_s:.1f} decisions/s; all 26 parameters "
-        f"moved")
+    log(f"[{tag}] collection: {log_.decisions} decisions in {collect_s:.3f} "
+        f"s = {log_.decisions / collect_s:.1f} decisions/s; all "
+        f"{len(moved)} parameters moved")
     return launches, agent
 
 
@@ -1046,10 +1223,12 @@ def batch_tensors(agent, rng) -> dict:
     return {k: torch.from_numpy(v).to(agent.device) for k, v in sample.items()}
 
 
-def phase_training_parity(agent) -> None:
+def phase_training_parity(agent, trace=None, per_step=MLP_STEP,
+                          tag="train parity") -> None:
     """One train step's loss and gradients on the kernel and the plain
     backend, from the same weights and minibatch; then a greedy
-    ``evaluate`` of the trained agent on both backends."""
+    ``evaluate`` of the trained agent on both backends, on the trace of
+    the next seed (``trace``, by default ``s1_trace``)."""
     from repro_torch.convert import leaves
     from repro_torch.core import evaluate
     from repro_torch.core.dfp import action_values, loss_fn
@@ -1062,7 +1241,7 @@ def phase_training_parity(agent) -> None:
     loss_k = loss_fn(agent.net, agent.dfp, batch)
     grads_k = torch.autograd.grad(loss_k, params)
     torch.cuda.synchronize()
-    assert launch_counts() == {"forward": 13, "dgrad": 10, "wgrad": 13}
+    assert launch_counts() == times(per_step, 1), launch_counts()
     loss_t = loss_fn(agent.net, dfp_torch, batch)
     grads_t = torch.autograd.grad(loss_t, params)
     torch.testing.assert_close(loss_k, loss_t, rtol=1e-4, atol=0.0)
@@ -1070,11 +1249,11 @@ def phase_training_parity(agent) -> None:
     for (name, _), gk, gt in zip(leaves(agent.net), grads_k, grads_t):
         torch.testing.assert_close(gk, gt, rtol=1e-3, atol=1e-4, msg=name)
         grad_err = max(grad_err, float((gk - gt).abs().max()))
-    log(f"[train parity] one step, kernel vs torch backend: loss "
-        f"{loss_k.item()!r} vs {loss_t.item()!r}; 26 gradient leaves within "
-        f"rtol 1e-3, atol 1e-4 (max abs diff {grad_err!r})")
+    log(f"[{tag}] one step, kernel vs torch backend: loss "
+        f"{loss_k.item()!r} vs {loss_t.item()!r}; {len(params)} gradient "
+        f"leaves within rtol 1e-3, atol 1e-4 (max abs diff {grad_err!r})")
 
-    res, jobs = s1_trace(TRAIN_SEEDS[-1] + 1)
+    res, jobs = (trace or s1_trace)(TRAIN_SEEDS[-1] + 1)
     w = agent.config.window
     runs = {}
     for backend in ("kernel", "torch"):
@@ -1114,12 +1293,12 @@ def phase_training_parity(agent) -> None:
     assert r_k.n_unstarted == r_t.n_unstarted == 0
     if full:
         assert r_k.metrics.as_row() == r_t.metrics.as_row()
-    log(f"[train parity] evaluate (greedy, seed {TRAIN_SEEDS[-1] + 1}): "
+    log(f"[{tag}] evaluate (greedy, seed {TRAIN_SEEDS[-1] + 1}): "
         f"{n_cmp} of {len(a_t)} decisions compared (first top-2 margin <= tol "
         f"{tol!r}: {'none' if not len(ties) else int(ties[0])}); actions "
         f"equal; " + ("whole sequences and metrics equal" if full else
                       "sequences part after a near-tie"))
-    log(f"[train parity] kernel-backend ScheduleMetrics "
+    log(f"[{tag}] kernel-backend ScheduleMetrics "
         f"{json.dumps(r_k.metrics.as_row())}")
 
 
@@ -1127,12 +1306,15 @@ BURST_GROUPS = (("forward (B1)", ("fused_mlp_fwd_kernel",
                                   "splitk_epilogue_kernel")),
                 ("dgrad (B2)", ("dgrad_kernel", "splitk_sum_kernel")),
                 ("wgrad (B3)", ("wgrad_kernel",)),
+                ("attention (B5)", ("mha_fwd_kernel",)),
+                ("attention dq, dkv (B6)", ("mha_bwd_dq_kernel",
+                                            "mha_bwd_dkv_kernel")),
                 ("gradient norm", ("norm",)),
                 ("Adam", ("multi_tensor_apply",)),
                 ("host-to-device copy", ("memcpy htod",)))
 
 
-def phase_training_timing(agent) -> None:
+def phase_training_timing(agent, tag="train timing") -> None:
     """Where a train step's time goes, on the trained agent: waited-for
     single steps on each backend, a burst's wall time and host sampling,
     and one profiled burst (device time by kernel group, host time by
@@ -1151,7 +1333,7 @@ def phase_training_timing(agent) -> None:
             agent.train_steps(1)               # ends in its host read
             per[backend].append((time.perf_counter() - t0) * 1e3)
     agent.set_backend("kernel")
-    log(f"[train timing] a waited-for train step (train_steps(1)), median of "
+    log(f"[{tag}] a waited-for train step (train_steps(1)), median of "
         f"20 in turns: kernel backend {statistics.median(per['kernel']):.4f} "
         f"ms, torch backend {statistics.median(per['torch']):.4f} ms wall")
     k = agent.config.grad_steps_per_episode
@@ -1177,16 +1359,16 @@ def phase_training_timing(agent) -> None:
         name = next((g for g, keys in BURST_GROUPS
                      if any(s in key for s in keys)), "other")
         groups[name] += e.self_device_time_total / 1e3
-    log(f"[train timing] a burst of {k} steps: {burst_ms:.3f} ms wall "
+    log(f"[{tag}] a burst of {k} steps: {burst_ms:.3f} ms wall "
         f"({burst_ms / k:.4f} ms per step), of which sampling {k} minibatches "
         f"on the host {sample_ms:.3f} ms; device {device_ms_:.3f} ms "
         f"(profiled burst) = {device_ms_ / k:.4f} ms per step, busy share "
         f"{device_ms_ / burst_ms:.4f}")
     for name, ms in groups.items():
-        log(f"[train timing]   {name:20s} {ms:9.3f} ms per burst = "
+        log(f"[{tag}]   {name:24s} {ms:9.3f} ms per burst = "
             f"{ms / k:.4f} ms per step ({ms / device_ms_:.3f})")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
-        log(f"[train timing]   {e.self_device_time_total / 1e3:9.3f} ms "
+        log(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"x{e.count:5d}  {e.key[:90]}")
     # Host side of the same burst: the operators with the most own host
     # time (inflated by the profiler; read as shares).
@@ -1194,17 +1376,18 @@ def phase_training_timing(agent) -> None:
             if e.device_type == DeviceType.CPU and not e.is_user_annotation]
     host_ms = sum(e.self_cpu_time_total for e in host) / 1e3
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:12]:
-        log(f"[train timing]   host {e.self_cpu_time_total / 1e3:9.3f} ms "
+        log(f"[{tag}]   host {e.self_cpu_time_total / 1e3:9.3f} ms "
             f"({e.self_cpu_time_total / 1e3 / host_ms:.3f}) x{e.count:5d}  "
             f"{e.key[:80]}")
 
 
-def phase_backward_main_path(agent) -> dict:
+def phase_backward_main_path(agent, per_step=MLP_STEP, tag="") -> dict:
     """dgrad and wgrad on the operands the training path gives them: one
     more train step's backward records each call's operands; each is held
     against its plain version, then timed beside its bound, its plain
     version and ``torch.mm`` on the act'-scaled gradient.  The launches
-    made here are not counted: the path's count was read before."""
+    made here are not counted: the path's count was read before.  ``tag``
+    prefixes the log lines of another path than the MLP agent's."""
     from repro_torch.convert import leaves
     from repro_torch.core.dfp import loss_fn
     from repro_torch.kernels.fused_mlp import kernel as fm
@@ -1226,8 +1409,8 @@ def phase_backward_main_path(agent) -> dict:
         torch.autograd.grad(loss_fn(agent.net, agent.dfp, batch), params)
     finally:
         fm.fused_mlp_dgrad, fm.fused_mlp_wgrad = launch_dgrad, launch_wgrad
-    assert len(calls["dgrad"]) == 10 and len(calls["wgrad"]) == 13, \
-        {k: len(v) for k, v in calls.items()}
+    assert {k: len(v) for k, v in calls.items()} == {
+        k: per_step[k] for k in calls}, {k: len(v) for k, v in calls.items()}
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     out = {}
     with torch.no_grad():            # y is a saved output that needs grad
@@ -1240,7 +1423,7 @@ def phase_backward_main_path(agent) -> dict:
                 t_k, t_p, t_l = (device_ms(f, flush) for f in (run, ref, lib))
                 b_ms, o_ms = grad_bound_ms(kind, m, k, n)
                 rows.append((t_k, t_p, t_l, b_ms, o_ms))
-                log(f"[{kind} main path] K={k:5d} N={n:4d} M={m} {act:10s}: "
+                log(f"[{tag}{kind} main path] K={k:5d} N={n:4d} M={m} {act:10s}: "
                     f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  torch.mm "
                     f"{t_l:.4f} ms  bound {max(b_ms, o_ms):.4f} ms "
                     f"({'bytes' if b_ms >= o_ms else 'operations'})")
@@ -1250,7 +1433,7 @@ def phase_backward_main_path(agent) -> dict:
             out[kind] = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p,
                          "library_ms": t_l, "bound_ms": max(b_ms, o_ms),
                          "bound_by": by, "layers": len(rows)}
-            log(f"[{kind} main path] {len(rows)} layers of one train step, "
+            log(f"[{tag}{kind} main path] {len(rows)} layers of one train step, "
                 f"summed: kernel {t_k:.4f} ms  plain {t_p:.4f} ms  torch.mm "
                 f"{t_l:.4f} ms  bound {max(b_ms, o_ms):.4f} ms ({by}); max "
                 f"abs err {err!r} against the plain version")
@@ -1285,6 +1468,180 @@ def grad_closures(kind: str, a, b, c, act: str) -> tuple:
             (x.shape[0], x.shape[1], g.shape[1]), act)
 
 
+def mha_bound_ms(kind: str, lengths: torch.Tensor, sq: int, sk: int,
+                 dh: int, dense: bool = False) -> tuple:
+    """(bytes, operations) times, in ms, of one call of ``mha_fwd`` or of a
+    B6 kernel over the keys each row's length keeps (every key with
+    ``dense``): q (and do, lse and delta for the backward) read once, k
+    and v read for the kept keys only, the outputs written once (o and
+    lse; dq; dk and dv in full); two flops per FMA over the float32 rate,
+    with 2 FMAs of dh per (query, kept key) for the forward (q.k, p v),
+    3 for dq and 4 for dkv.  The exp per pair is not counted."""
+    bh = lengths.numel()
+    nk = (bh * sk if dense
+          else int(torch.ceil(lengths.clamp(0, sk)).sum()))
+    rows = bh * sq
+    kv = 2 * nk * dh + bh
+    if kind == "mha_fwd":
+        nbytes, fmas = rows * dh + kv + rows * dh + rows, 2 * sq * nk * dh
+    elif kind == "mha_bwd_dq":
+        nbytes = 2 * rows * dh + 2 * rows + kv + rows * dh
+        fmas = 3 * sq * nk * dh
+    else:
+        nbytes = 2 * rows * dh + 2 * rows + kv + 2 * bh * sk * dh
+        fmas = 4 * sq * nk * dh
+    return (4.0 * nbytes / PEAK_BYTES_PER_S * 1e3,
+            2.0 * fmas / PEAK_F32_FLOP_PER_S * 1e3)
+
+
+def mha_closures(kind: str, args: tuple) -> tuple:
+    """For one recorded call of a masked-attention kernel: the kernel, its
+    plain version (for B6 the whole ``mha_bwd_ref``, which computes dq, dk
+    and dv together) and ``scaled_dot_product_attention`` with the same key
+    mask (for B6 its autograd backward, one call for dq, dk and dv, on a
+    graph built beforehand), as closures; and the largest absolute
+    difference of the kernel from its plain version."""
+    from repro_torch.kernels.flash_attention import (mha_bwd_dkv, mha_bwd_dq,
+                                                     mha_bwd_ref, mha_fwd,
+                                                     mha_fwd_ref)
+    q, k, v = args[:3]
+    lengths = args[-1]
+    mask = (torch.arange(k.shape[1], device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]     # (BH, 1, 1, Sk)
+    if kind == "mha_fwd":
+        run = lambda: mha_fwd(*args)
+        ref = lambda: mha_fwd_ref(*args)
+        lib = lambda: F.scaled_dot_product_attention(
+            q[:, None], k[:, None], v[:, None], attn_mask=mask)
+        got, want = run(), ref()
+    else:
+        do = args[3]
+        run = (lambda: mha_bwd_dq(*args)) if kind == "mha_bwd_dq" else \
+            (lambda: mha_bwd_dkv(*args))
+        ref = lambda: mha_bwd_ref(*args)
+        leaves_ = [t.detach()[:, None].clone().requires_grad_()
+                   for t in (q, k, v)]
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(*leaves_, attn_mask=mask)
+        lib = lambda: torch.autograd.grad(out, leaves_, do[:, None],
+                                          retain_graph=True)
+        got = run()
+        got = (got,) if kind == "mha_bwd_dq" else got
+        want = ref()[:1] if kind == "mha_bwd_dq" else ref()[1:]
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    return run, ref, lib, err
+
+
+def phase_attention_main_path(agent, sim) -> dict:
+    """The attention kernels (and window_pack at K = Q) on the operands the
+    attention paths give them.  (1) One more greedy device rollout: every
+    ``mha_fwd`` call is held against its plain version as it is made, and
+    every 16th call's operands are kept; the kept call with the median
+    total length is timed; ``phase_window_pack_main_path`` records and
+    checks the same rollout's window packs.  (2) One train step: its two ``mha_fwd``, two ``mha_bwd_dq``
+    and two ``mha_bwd_dkv`` calls are recorded, each held against its
+    plain version and timed (L2 flushed) beside its bound, its plain
+    version and ``scaled_dot_product_attention``; the step's sums are the
+    kernels line's.  The launches made here are not counted: the paths'
+    counts were read before.  Returns the three kernels' figures and
+    window_pack's."""
+    from repro_torch.convert import leaves
+    from repro_torch.core.dfp import loss_fn
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import mha_fwd_ref
+    attr = {"mha_fwd": "mha_forward", "mha_bwd_dq": "mha_backward_dq",
+            "mha_bwd_dkv": "mha_backward_dkv"}      # launches in kernel.py
+    launch = {kind: getattr(fa, name) for kind, name in attr.items()}
+    kept, err_t, n_calls = [], torch.zeros((), device="cuda"), 0
+
+    def rollout_fwd(q, k, v, lengths):
+        nonlocal err_t, n_calls
+        o, lse = launch["mha_fwd"](q, k, v, lengths)
+        ro, rlse = mha_fwd_ref(q, k, v, lengths)
+        err_t = torch.maximum(err_t, torch.maximum((o - ro).abs().max(),
+                                                   (lse - rlse).abs().max()))
+        if n_calls % 16 == 0:
+            kept.append((q, k, v, lengths))
+        n_calls += 1
+        return o, lse
+
+    fa.mha_forward = rollout_fwd
+    try:                 # the same rollout records window_pack's inputs
+        wp_out = phase_window_pack_main_path(sim,
+                                             "window_pack attention path")
+    finally:
+        fa.mha_forward = launch["mha_fwd"]
+    rollout_err = float(err_t)
+    assert n_calls == 2 * sim.stats.rounds > 0, (n_calls, sim.stats)
+    assert rollout_err <= MHA_TOL["mha_fwd"], rollout_err
+
+    calls = {kind: [] for kind in launch}
+
+    def recorder(kind):
+        def rec(*args):                 # a backward's do (args[3]) is cloned
+            calls[kind].append(args if kind == "mha_fwd" else
+                               (*args[:3], args[3].clone(), *args[4:]))
+            return launch[kind](*args)
+        return rec
+
+    for kind, name in attr.items():
+        setattr(fa, name, recorder(kind))
+    try:
+        params = [p for _, p in leaves(agent.net)]
+        batch = batch_tensors(agent, np.random.default_rng(14))
+        torch.autograd.grad(loss_fn(agent.net, agent.dfp, batch), params)
+    finally:
+        for kind, name in attr.items():
+            setattr(fa, name, launch[kind])
+    assert all(len(c) == 2 for c in calls.values()), \
+        {k: len(c) for k, c in calls.items()}
+
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    log(f"[attn kernels] bounds from {PEAKS}; card: "
+        f"{gpu_name_and_power_limit()}")
+
+    def measure(kind, args, what):
+        run, ref, lib, err = mha_closures(kind, args)
+        if not err <= MHA_TOL[kind]:
+            raise AssertionError(f"[attn kernels] {kind} {what}: max abs "
+                                 f"err {err} > {MHA_TOL[kind]}")
+        t_k, t_p, t_l = (device_ms(f, flush) for f in (run, ref, lib))
+        bh, sq, dh = args[0].shape
+        sk = args[1].shape[1]
+        b_ms, o_ms = mha_bound_ms(kind, args[-1], sq, sk, dh)
+        db_ms, do_ms = mha_bound_ms(kind, args[-1], sq, sk, dh, dense=True)
+        log(f"[attn kernels] {kind:11s} {what}: BH={bh} S={sq} dh={dh}, "
+            f"mean length {float(args[-1].mean()):.2f}: kernel {t_k:.4f} ms  "
+            f"plain {t_p:.4f} ms  sdpa {t_l:.4f} ms  bound "
+            f"{max(b_ms, o_ms):.6f} ms "
+            f"({'bytes' if b_ms >= o_ms else 'operations'}), dense "
+            f"{max(db_ms, do_ms):.6f} ms; max abs err {err!r}")
+        return t_k, t_p, t_l, b_ms, o_ms, err
+
+    total = [float(a[-1].sum()) for a in kept]
+    med = kept[int(np.argsort(total)[len(kept) // 2])]
+    measure("mha_fwd", med, f"device rollout (median of {len(kept)} kept "
+            f"of {n_calls} calls, all {n_calls} within {rollout_err!r})")
+    out = {}
+    with torch.no_grad():
+        for kind in launch:
+            rows = [measure(kind, args, f"train step call {i}")
+                    for i, args in enumerate(calls[kind])]
+            t_k, t_p, t_l, b_ms, o_ms = (sum(r[i] for r in rows)
+                                         for i in range(5))
+            err = max(r[5] for r in rows)
+            if kind == "mha_fwd":
+                err = max(err, rollout_err)
+            by = "bytes" if b_ms >= o_ms else "operations"
+            out[kind] = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+                         "library_ms": t_l, "bound_ms": max(b_ms, o_ms),
+                         "bound_by": by}
+            log(f"[attn kernels] {kind}: the train step's {len(rows)} calls "
+                f"summed: kernel {t_k:.4f} ms  plain {t_p:.4f} ms  sdpa "
+                f"{t_l:.4f} ms  bound {max(b_ms, o_ms):.6f} ms ({by})")
+    return out, wp_out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1299,8 +1656,10 @@ def main() -> int:
     timed("build", phase_build)
     worst_f32 = timed("fused_mlp parity", phase_parity)
     wp_err = timed("window_pack parity", phase_window_pack_parity)
+    mha_worst = timed("mha parity", phase_mha_parity)
     agent = MRSchAgent(ThetaConfig().resources(), AgentConfig(seed=0))
     n_params = count_params(agent.net)
+    assert agent.enc.state_dim == 11410, agent.enc.state_dim
     log(f"[agent] paper width: state_dim {agent.enc.state_dim}, "
         f"{n_params} parameters ({4 * n_params / 1e6:.1f} MB float32), "
         f"backend {agent.dfp.backend}")
@@ -1309,7 +1668,9 @@ def main() -> int:
     service = timed("service path", phase_main_path, agent)
     timed("service breakdown", phase_breakdown, agent)
     timed("device-engine parity", phase_device_parity, agent)
-    device, sim = timed("device-engine path", phase_device_main, agent)
+    # One timed repeat, not three, keeps the run near ten minutes.
+    device, sim = timed("device-engine path", phase_device_main, agent,
+                        None, MLP_FORWARD, "device", 1)
     wp_main = timed("window_pack on the main path",
                     phase_window_pack_main_path, sim)
     del sim
@@ -1320,34 +1681,83 @@ def main() -> int:
     timed("training timing", phase_training_timing, trained)
     bwd_main = timed("backward on the training path",
                      phase_backward_main_path, trained)
+    del agent, trained
+
+    # The attention state module: the reference's default attention agent.
+    attn_cfg = AgentConfig(state_module="attention", seed=0)
+    attn = MRSchAgent(ThetaConfig().resources(), attn_cfg)
+    n_attn = count_params(attn.net)
+    assert (attn.enc.state_dim, n_attn) == (517, 1383428), (
+        attn.enc.state_dim, n_attn)
+    log(f"[attn agent] queue_cap {attn.config.queue_cap}, attn_dim "
+        f"{attn.config.attn_dim}, {attn.config.attn_heads} heads, "
+        f"{attn.config.attn_layers} layers: state_dim {attn.enc.state_dim}, "
+        f"{n_attn} parameters, backend {attn.dfp.backend}")
+    attn_service = timed("attention service path", phase_main_path, attn,
+                         attn_trace, ATTN_FORWARD, (1, 1), "attn service")
+    timed("attention device-engine parity", agent_device_parity, attn,
+          *attn_trace(1), "attention agent", "attn device parity")
+    attn_device, attn_sim = timed(
+        "attention device-engine path", phase_device_main, attn, attn_trace,
+        ATTN_FORWARD, "attn device", 3, False)
+    attn_launches, attn_trained = timed(
+        "attention training path", phase_training, attn_cfg, attn_trace,
+        ATTN_STEP, ATTN_FORWARD, "attn train")
+    timed("attention training parity", phase_training_parity, attn_trained,
+          attn_trace, ATTN_STEP, "attn train parity")
+    timed("attention training timing", phase_training_timing, attn_trained,
+          "attn train timing")
+    timed("backward on the attention training path",
+          phase_backward_main_path, attn_trained, ATTN_STEP, "attn ")
+    attn_main, wp_attn = timed("attention kernels on the main path",
+                               phase_attention_main_path, attn_trained,
+                               attn_sim)
+    del attn_sim
+
     t_k, t_p, t_l, bnd, by = timing["sums"][16]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     kernels = {"kernels": [{
         "name": "fused_mlp_forward", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": (service["launches"] + device["launches"]["fused_mlp"]
-                     + train_launches["forward"]),
+        "launches": (service["launches"] + device["launches"]["forward"]
+                     + train_launches["forward"] + attn_service["launches"]
+                     + attn_device["launches"]["forward"]
+                     + attn_launches["forward"]),
         "max_abs_err": worst_f32,
         "ms": t_k, "plain_ms": t_p, "bound_ms": bnd, "bound_by": by,
         "library_ms": t_l,
     }, {
         "name": "window_pack", "route": "cuda",
         "source": WP_SOURCE, "replaces": WP_REPLACES,
-        "launches": device["launches"]["window_pack"],
-        "max_abs_err": max(wp_err, wp_main["max_abs_err"]),
+        "launches": (device["launches"]["window_pack"]
+                     + attn_device["launches"]["window_pack"]),
+        "max_abs_err": max(wp_err, wp_main["max_abs_err"],
+                           wp_attn["max_abs_err"]),
         "ms": wp_main["ms"], "plain_ms": wp_main["plain_ms"],
         "bound_ms": wp_main["bound_ms"], "bound_by": wp_main["bound_by"],
         "library_ms": None,
     }] + [{
         "name": f"fused_mlp_{kind}", "route": "cuda", "source": BWD_SOURCE,
-        "replaces": replaces, "launches": train_launches[kind],
+        "replaces": replaces,
+        "launches": train_launches[kind] + attn_launches[kind],
         "max_abs_err": max(bwd_worst[kind], bwd_main[kind]["max_abs_err"]),
         "ms": bwd_main[kind]["ms"], "plain_ms": bwd_main[kind]["plain_ms"],
         "bound_ms": bwd_main[kind]["bound_ms"],
         "bound_by": bwd_main[kind]["bound_by"],
         "library_ms": bwd_main[kind]["library_ms"],
     } for kind, replaces in (("dgrad", DGRAD_REPLACES),
-                             ("wgrad", WGRAD_REPLACES))]}
+                             ("wgrad", WGRAD_REPLACES))] + [{
+        "name": kind, "route": "cuda", "source": source,
+        "replaces": replaces,
+        "launches": (attn_service["counts"][key]
+                     + attn_device["launches"][key] + attn_launches[key]),
+        "max_abs_err": max(mha_worst[kind], attn_main[kind]["max_abs_err"]),
+        **{k: attn_main[kind][k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")},
+    } for kind, key, source, replaces in (
+        ("mha_fwd", "mha", MHA_SOURCE, MHA_REPLACES),
+        ("mha_bwd_dq", "mha_bwd_dq", MHA_BWD_SOURCE, MHA_BWD_REPLACES),
+        ("mha_bwd_dkv", "mha_bwd_dkv", MHA_BWD_SOURCE, MHA_BWD_REPLACES))]}
     print(card)
     print(json.dumps(kernels))
     # The run uses one card, whatever else the host has.

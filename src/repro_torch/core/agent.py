@@ -51,12 +51,20 @@ class AgentConfig:
     eps_start: float = 1.0
     eps_decay: float = 0.995          # paper §IV-C: alpha = 0.995
     eps_min: float = 0.02
-    state_module: str = "mlp"
-    backend: str = "kernel"           # "torch" | "kernel" (fused-MLP kernel)
+    state_module: str = "mlp"         # "mlp" | "attention"
+    backend: str = "kernel"           # "torch" | "kernel" (the CUDA kernels)
     state_hidden: Tuple[int, ...] = (4000, 1000)
     state_out: int = 512
     module_hidden: int = 128
     stream_hidden: int = 512
+    # Queue-as-tokens knobs (state_module == "attention" only): the
+    # encoder observes up to ``queue_cap`` waiting jobs instead of the
+    # leading window of W.
+    queue_cap: int = 128
+    attn_dim: int = 64
+    attn_heads: int = 4
+    attn_layers: int = 2
+    attn_mlp_mult: int = 2
     seed: int = 0
     grad_clip: float = 10.0
 
@@ -71,8 +79,12 @@ class MRSchAgent:
         self.device = resolve_device(device)
         names = tuple(r.name for r in self.resources)
         caps = tuple(r.capacity for r in self.resources)
+        attention = config.state_module == "attention"
         self.enc = EncodingConfig(window=config.window, resource_names=names,
-                                  capacities=caps)
+                                  capacities=caps,
+                                  state_module=config.state_module,
+                                  queue_cap=(config.queue_cap if attention
+                                             else 0))
         self.dfp = DFPConfig(
             state_dim=self.enc.state_dim,
             n_measurements=len(names),
@@ -85,6 +97,11 @@ class MRSchAgent:
             state_out=config.state_out,
             module_hidden=config.module_hidden,
             stream_hidden=config.stream_hidden,
+            attn_queue=config.queue_cap,
+            attn_dim=config.attn_dim,
+            attn_heads=config.attn_heads,
+            attn_layers=config.attn_layers,
+            attn_mlp_mult=config.attn_mlp_mult,
         )
         gen = torch.Generator().manual_seed(config.seed)
         self.net = DFPNetwork(self.dfp, generator=gen, device=self.device)
@@ -230,7 +247,8 @@ class MRSchAgent:
 
     def load(self, path: str) -> None:
         """Restore ``save``d weights and epsilon (from either package),
-        raising ``ValueError`` on a leaf count, shape or dtype mismatch;
+        raising ``ValueError`` on a leaf count, shape or dtype mismatch (a
+        checkpoint of the other state module differs in its leaf count);
         the Adam state starts afresh."""
         self.epsilon = load_npz(path, self.net)
         self.opt_state = adam_init(self._params())

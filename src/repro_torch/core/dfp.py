@@ -2,7 +2,10 @@
 MRSch (paper §II-B, §III, §IV-C), and its training loss.
 
 Three input modules:
-  * state module   — MLP  state_dim -> 4000 -> 1000 -> 512 (leaky rectifier);
+  * state module   — MLP  state_dim -> 4000 -> 1000 -> 512 (leaky rectifier),
+                     or the queue-as-tokens attention encoder
+                     (``repro_torch.nn.queue_encoder``) over the attention
+                     state layout;
   * measurement    — 3 fully-connected layers of 128 units;
   * goal           — 3 fully-connected layers of 128 units.
 
@@ -20,8 +23,8 @@ The functions take the network (the weights) and a ``DFPConfig`` (the
 shape contract and the backend) separately, as the JAX package's take
 ``params`` and ``cfg``, so one set of weights runs on either backend.
 The inference functions run under ``torch.no_grad()``; ``loss_fn`` runs
-the same forward body with autograd on.  Only the "mlp" state module is
-ported; the CNN and attention variants are not yet.
+the same forward body with autograd on.  The "mlp" and "attention" state
+modules are ported; the CNN ablation is not.
 """
 from __future__ import annotations
 
@@ -33,8 +36,10 @@ from torch import nn
 
 from ..nn.backend import mlp_forward, resolve_backend
 from ..nn.modules import MLP
+from ..nn.queue_encoder import (QueueEncoder, QueueEncoderConfig,
+                                queue_state_features)
 
-STATE_MODULES = ("mlp",)
+STATE_MODULES = ("mlp", "attention")
 
 
 @dataclass(frozen=True)
@@ -48,7 +53,14 @@ class DFPConfig:
     state_out: int = 512
     module_hidden: int = 128                  # measurement/goal modules
     stream_hidden: int = 512
-    state_module: str = "mlp"
+    state_module: str = "mlp"                 # "mlp" | "attention"
+    # Queue-as-tokens attention state module (repro_torch.nn.queue_encoder),
+    # read only when state_module == "attention".
+    attn_queue: int = 128                     # Q: job-token buffer size
+    attn_dim: int = 64                        # d_model
+    attn_heads: int = 4
+    attn_layers: int = 2
+    attn_mlp_mult: int = 2
     backend: str = "kernel"                   # "torch" | "kernel"
 
     def __post_init__(self):
@@ -56,6 +68,14 @@ class DFPConfig:
         if self.state_module not in STATE_MODULES:
             raise ValueError(f"state_module {self.state_module!r} is not "
                              f"ported; expected one of {STATE_MODULES}")
+        if self.state_module == "attention":
+            expect = (self.attn_queue * (self.n_measurements + 2) + 1
+                      + 2 * self.n_measurements)
+            if self.state_dim != expect:
+                raise ValueError(
+                    f"attention state_dim mismatch: got {self.state_dim}, "
+                    f"layout Q*(M+2)+1+2M = {expect} for "
+                    f"attn_queue={self.attn_queue} M={self.n_measurements}")
 
     @property
     def n_offsets(self) -> int:
@@ -65,9 +85,25 @@ class DFPConfig:
     def pred_dim(self) -> int:
         return self.n_offsets * self.n_measurements
 
+    @property
+    def queue_encoder(self) -> QueueEncoderConfig:
+        """Encoder architecture derived from the DFP shape contract."""
+        return QueueEncoderConfig(
+            queue_cap=self.attn_queue,
+            job_dim=self.n_measurements + 2,
+            ctx_dim=2 * self.n_measurements,
+            window=self.n_actions,
+            d_model=self.attn_dim,
+            n_heads=self.attn_heads,
+            n_layers=self.attn_layers,
+            mlp_mult=self.attn_mlp_mult,
+            out_dim=self.state_out,
+        )
+
 
 class DFPNetwork(nn.Module):
-    """The DFP weights: one ``MLP`` per module of the JAX parameter tree.
+    """The DFP weights: one module per module of the JAX parameter tree
+(``MLP``s, and a ``QueueEncoder`` for the attention state module).
 
     The temporal weights of ``cfg`` are kept beside them as a buffer (not
     a parameter, not in the state dict), so scoring finds them on the
@@ -85,8 +121,11 @@ class DFPNetwork(nn.Module):
         kw = dict(generator=generator, device=device)
         h = cfg.module_hidden
         joint = cfg.state_out + 2 * h
-        self.state = MLP([cfg.state_dim, *cfg.state_hidden, cfg.state_out],
-                         **kw)
+        if cfg.state_module == "attention":
+            self.state = QueueEncoder(cfg.queue_encoder, **kw)
+        else:
+            self.state = MLP([cfg.state_dim, *cfg.state_hidden,
+                              cfg.state_out], **kw)
         self.measurement = MLP([cfg.n_measurements, h, h, h], **kw)
         self.goal = MLP([cfg.n_measurements, h, h, h], **kw)
         self.expectation = MLP([joint, cfg.stream_hidden, cfg.pred_dim], **kw)
@@ -98,8 +137,12 @@ def _predict(net: DFPNetwork, cfg: DFPConfig, state: torch.Tensor,
              meas: torch.Tensor, goal: torch.Tensor) -> torch.Tensor:
     """The forward body shared by ``predict`` and ``loss_fn``."""
     be = cfg.backend
-    s = mlp_forward(net.state, state, final_activation="leaky_relu",
-                    backend=be)
+    if cfg.state_module == "attention":
+        s = queue_state_features(net.state, cfg.queue_encoder, state,
+                                 backend=be)
+    else:
+        s = mlp_forward(net.state, state, final_activation="leaky_relu",
+                        backend=be)
     m = mlp_forward(net.measurement, meas, final_activation="leaky_relu",
                     backend=be)
     g = mlp_forward(net.goal, goal, final_activation="leaky_relu", backend=be)

@@ -1,8 +1,7 @@
-"""Vector state encoding (paper §III-A), the classic layout of the "mlp"
-state module.  (The JAX package's queue-as-tokens layout for its attention
-state module is not ported yet.)
+"""Vector state encoding (paper §III-A) plus the queue-as-tokens layout.
 
-Each waiting job in the window -> (R + 2) elements:
+Classic (``state_module`` "mlp") — each waiting job in the window ->
+(R + 2) elements:
     [P_i1 .. P_iR,  walltime_estimate,  queued_time]
 where P_ij is the requested fraction of resource j's capacity and the two
 times are normalized by ``time_scale``.
@@ -13,6 +12,14 @@ Each resource *unit* -> 2 elements:
 Concatenated into one fixed-size vector:
     dim = W*(R+2) + sum_r 2*capacity_r
 which reproduces the paper's 11410 for (W=10, 4392 nodes, 1293 BB units).
+
+Attention (``state_module`` "attention") — the window cap is removed:
+the first ``queue_cap`` (Q >= W) waiting jobs each become one (R + 2)
+token in queue order (the leading W are exactly the window), followed by
+the queue length (at most Q) and a 2R cluster-context summary
+[free_fraction_r, mean normalized time-to-free over busy units of r]:
+    dim = Q*(R+2) + 1 + 2R
+which ``repro_torch.nn.queue_encoder`` consumes.
 
 The packed decision-row contract is ``[state | meas | goal | valid]``.
 """
@@ -30,6 +37,8 @@ from .goal import ctx_goal
 
 DAY = 86400.0
 
+STATE_MODULES = ("mlp", "attention")
+
 
 @dataclass(frozen=True)
 class EncodingConfig:
@@ -37,6 +46,21 @@ class EncodingConfig:
     resource_names: Sequence[str]    # ordered resource list
     capacities: Sequence[int]        # units per resource
     time_scale: float = DAY          # normalizer for all time quantities
+    state_module: str = "mlp"        # "mlp" = classic layout;
+    #                                  "attention" = queue-as-tokens layout
+    queue_cap: int = 0               # Q, attention layout only (>= window)
+
+    def __post_init__(self):
+        if self.state_module not in STATE_MODULES:
+            raise ValueError(f"unknown state_module "
+                             f"{self.state_module!r}; expected one of "
+                             f"{STATE_MODULES}")
+        if (self.state_module == "attention"
+                and self.queue_cap < max(int(self.window), 1)):
+            raise ValueError(
+                f"attention encoding needs queue_cap >= window, got "
+                f"queue_cap={self.queue_cap} window={self.window} — the "
+                "leading window tokens double as the action slots")
 
     @property
     def n_resources(self) -> int:
@@ -47,7 +71,14 @@ class EncodingConfig:
         return self.n_resources + 2
 
     @property
+    def ctx_dim(self) -> int:
+        """Attention layout: context-summary width (2 per resource)."""
+        return 2 * self.n_resources
+
+    @property
     def state_dim(self) -> int:
+        if self.state_module == "attention":
+            return self.queue_cap * self.job_dim + 1 + self.ctx_dim
         return self.window * self.job_dim + 2 * int(sum(self.capacities))
 
 
@@ -103,6 +134,30 @@ def encode_state(cfg: EncodingConfig, ctx: SchedContext,
         key = (names, caps_t, cfg.time_scale)
         ctx.cluster.__dict__["_enc_key"] = (cfg, key, caps_t)
     R = cfg.n_resources
+    if cfg.state_module == "attention":
+        # --- queue-as-tokens layout: [Q*(R+2) | queue_len | 2R context]
+        now = ctx.now
+        queue = ctx.queue if ctx.queue is not None else ctx.window
+        Q = cfg.queue_cap
+        for slot, job in enumerate(queue[:Q]):
+            base = slot * cfg.job_dim
+            out[base: base + R + 1] = _job_static_row(job, key, caps_t,
+                                                      cfg.time_scale)
+            out[base + R + 1] = (now - job.submit) / cfg.time_scale
+        out[Q * cfg.job_dim] = min(len(queue), Q)
+        offset = Q * cfg.job_dim + 1
+        for r, name in enumerate(cfg.resource_names):
+            rel = ctx.cluster.release[name]
+            busy = rel > 0.0
+            nb = int(busy.sum())
+            out[offset] = 1.0 - nb / caps_t[r]               # free fraction
+            if nb:
+                # Upper clip keeps permanently drained units (release =
+                # +inf phantom reservations) from leaking inf features.
+                ttf = np.clip(rel[busy] - now, 0.0, TTF_HORIZON).sum() / nb
+                out[offset + 1] = ttf / cfg.time_scale       # mean time-to-free
+            offset += 2
+        return out
     # --- window jobs
     now = ctx.now
     for slot, job in enumerate(ctx.window[: cfg.window]):

@@ -1,0 +1,109 @@
+"""Build, load and launch the masked-attention CUDA kernels, compiled for
+``sm_90a``: the forward (``csrc/mha.cu``) and the two backward kernels, dq
+and dkv (``csrc/mha_bwd.cu``), one library each, by the shared scheme of
+``kernels/_build.py``; nothing here runs when the module is imported."""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from .._build import BuildInfo, build_library, check_launch, load_library
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "mha.cu"
+BWD_SOURCE = SOURCE.with_name("mha_bwd.cu")
+
+HEAD_DIMS = (8, 16, 32, 64)     # the dh the kernels are instantiated for
+
+
+def build() -> BuildInfo:
+    """Compile the forward library if this source has not been built yet."""
+    return build_library("mha", SOURCE)
+
+
+def build_backward() -> BuildInfo:
+    """Compile the backward library if this source has not been built yet."""
+    return build_library("mha_bwd", BWD_SOURCE)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = load_library(build())
+    lib.mrsch_mha_fwd.argtypes = [_P] * 6 + [_I] * 4 + [ctypes.c_float, _P]
+    lib.mrsch_mha_fwd.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _backward_library() -> ctypes.CDLL:
+    lib = load_library(build_backward())
+    lib.mrsch_mha_bwd_dq.argtypes = ([_P] * 8 + [_I] * 4
+                                     + [ctypes.c_float, _P])
+    lib.mrsch_mha_bwd_dkv.argtypes = ([_P] * 9 + [_I] * 4
+                                      + [ctypes.c_float, _P])
+    lib.mrsch_mha_bwd_dq.restype = ctypes.c_int
+    lib.mrsch_mha_bwd_dkv.restype = ctypes.c_int
+    return lib
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _dims(q: torch.Tensor, k: torch.Tensor) -> tuple:
+    bh, sq, dh = q.shape
+    return bh, sq, k.shape[1], dh, dh ** -0.5
+
+
+def mha_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                lengths: torch.Tensor) -> tuple:
+    """Launch B5 on CUDA tensors the caller has checked: q (BH, Sq, dh),
+    k, v (BH, Sk, dh), lengths (BH,), float32, contiguous, on one device
+    -> (o (BH, Sq, dh), lse (BH, Sq))."""
+    bh, sq, sk, dh, scale = _dims(q, k)
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        err = lib.mrsch_mha_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                lengths.data_ptr(), o.data_ptr(),
+                                lse.data_ptr(), bh, sq, sk, dh, scale,
+                                _stream(q.device))
+    check_launch(lib, "mha_fwd", err, f"BH={bh} Sq={sq} Sk={sk} dh={dh}")
+    return o, lse
+
+
+def mha_backward_dq(q, k, v, do, lse, delta, lengths) -> torch.Tensor:
+    """Launch B6's dq kernel on checked CUDA tensors -> dq (BH, Sq, dh)."""
+    bh, sq, sk, dh, scale = _dims(q, k)
+    dq = torch.empty_like(q)
+    lib = _backward_library()
+    with torch.cuda.device(q.device):
+        err = lib.mrsch_mha_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), lengths.data_ptr(),
+            dq.data_ptr(), bh, sq, sk, dh, scale, _stream(q.device))
+    check_launch(lib, "mha_bwd_dq", err, f"BH={bh} Sq={sq} Sk={sk} dh={dh}")
+    return dq
+
+
+def mha_backward_dkv(q, k, v, do, lse, delta, lengths) -> tuple:
+    """Launch B6's dkv kernel on checked CUDA tensors -> (dk, dv), each
+    (BH, Sk, dh)."""
+    bh, sq, sk, dh, scale = _dims(q, k)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _backward_library()
+    with torch.cuda.device(q.device):
+        err = lib.mrsch_mha_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), lengths.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), bh, sq, sk, dh, scale,
+            _stream(q.device))
+    check_launch(lib, "mha_bwd_dkv", err, f"BH={bh} Sq={sq} Sk={sk} dh={dh}")
+    return dk, dv

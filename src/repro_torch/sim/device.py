@@ -51,7 +51,9 @@ State layout (leading axis = environment), as in the reference:
 
 Times are float32 on the device, as in the reference, so an N=1 rollout
 reproduces the sequential engine's schedule with metrics equal to
-float32 precision.  Only the "mlp" state module is ported.
+float32 precision.  Decision rows follow the policy's state module: the
+classic "mlp" layout or the "attention" queue-as-tokens layout, whose
+first ``queue_cap`` waiting jobs come from the same window pack.
 """
 from __future__ import annotations
 
@@ -103,6 +105,8 @@ class DeviceLayout:
     backfill: bool
     requires_obs: bool
     time_scale: float
+    state_module: str = "mlp"        # mirrors EncodingConfig.state_module
+    queue_cap: int = 0               # Q, attention layout only
 
     @property
     def n_resources(self) -> int:
@@ -128,6 +132,9 @@ class DeviceLayout:
 
     @property
     def state_dim(self) -> int:
+        if self.state_module == "attention":
+            return (self.queue_cap * (self.n_resources + 2) + 1
+                    + 2 * self.n_resources)
         return self.window * (self.n_resources + 2) + 2 * int(sum(self.enc_caps))
 
 
@@ -442,6 +449,34 @@ def _build_obs(layout: DeviceLayout, st, win_feats, win_valid, meas, goal):
     return torch.cat(parts + [meas, goal, win_valid.float()], dim=1)
 
 
+def _build_obs_attention(layout: DeviceLayout, st, waiting, q_feats, q_valid,
+                         meas, goal):
+    """Attention-layout decision rows (reference: ``_build_obs_attention``,
+    mirroring ``encoding.encode_state`` with ``state_module="attention"``):
+    ``[Q*(R+2) tokens | queue_len | 2R context | meas | goal | valid(W)]``.
+    ``q_feats``/``q_valid`` pack the first ``queue_cap`` waiting jobs; the
+    leading W slots are exactly the action window."""
+    N, R, W = layout.n_envs, layout.n_resources, layout.window
+    Q = layout.queue_cap
+    now = st["now"]
+    tok = _job_tokens(layout, st, q_feats, q_valid)
+    qlen = waiting.sum(dim=1).clamp_max(float(Q))
+    ctx_cols = []
+    for off, cap in layout.segments:
+        seg = st["release"][:, off:off + cap]
+        busy = seg > 0.0
+        nb = busy.sum(dim=1).float()
+        ctx_cols.append(1.0 - nb / float(max(cap, 1)))       # free fraction
+        ttf_sum = torch.where(
+            busy, (seg - now[:, None]).clamp(0.0, TTF_HORIZON),
+            0.0).sum(dim=1)
+        ctx_cols.append(torch.where(nb > 0, ttf_sum / nb.clamp_min(1.0), 0.0)
+                        / layout.time_scale)                 # mean time-to-free
+    return torch.cat([tok.reshape(N, Q * (R + 2)), qlen[:, None],
+                      torch.stack(ctx_cols, dim=1), meas, goal,
+                      q_valid[:, :W].float()], dim=1)
+
+
 def _device_rollout(layout: DeviceLayout, score_fn, policy_state,
                     explore: bool, eps: float, gen, collect: bool,
                     trace: bool, arrays, faults: DeviceFaults,
@@ -507,15 +542,27 @@ def _device_rollout(layout: DeviceLayout, score_fn, policy_state,
         n_waiting = waiting.sum(dim=1)
         need = s["in_pass"] & (n_waiting > 0) & ~s["done"]
         free = _segment_free(layout, s["release"])
-        win_feats, win_idx, win_valid = pack_window(waiting, feats, window=W)
+        # The attention module observes the first queue_cap waiting jobs;
+        # one pack covers both the Q-token state and (its leading W slots)
+        # the action window.
+        attention = layout.state_module == "attention"
+        K = layout.queue_cap if attention else W
+        pk_feats, pk_idx, pk_valid = pack_window(waiting, feats, window=K)
+        win_idx, win_valid = pk_idx[:, :W], pk_valid[:, :W]
         if not layout.requires_obs:
             obs = win_valid.float()
         else:
             meas, goal = _meas_goal(layout, arrays, s, free, waiting,
                                     has_drains)
-            obs = _build_obs(layout, s, win_feats, win_valid, meas, goal)
+            if attention:
+                obs = _build_obs_attention(layout, s, waiting, pk_feats,
+                                           pk_valid, meas, goal)
+            else:
+                obs = _build_obs(layout, s, pk_feats, pk_valid, meas, goal)
         # Jobs a host Simulator would drop from the observable window this
-        # decision (ScheduleMetrics.truncated_jobs).
+        # decision (ScheduleMetrics.truncated_jobs; the attention module
+        # still counts overflow past W, so both modules report the same
+        # queue pressure).
         overflow = (n_waiting - float(W)).clamp_min(0.0).to(torch.int32)
         s = {**s, "truncated": s["truncated"] + need * overflow}
         scores = score_fn(policy_state, obs)[:, :W]
@@ -691,10 +738,6 @@ class DeviceSimulator:
             if enc is None:
                 raise ValueError(
                     f"{type(policy).__name__} requires obs but has no enc")
-            if str(getattr(enc, "state_module", "mlp")) != "mlp":
-                raise NotImplementedError(
-                    "the device engine's attention layout needs the "
-                    "attention kernels, which are not ported yet")
             if tuple(enc.resource_names) != names:
                 raise ValueError(
                     f"policy encodes resources {tuple(enc.resource_names)} "
@@ -706,9 +749,11 @@ class DeviceSimulator:
                     "exactly the simulation window")
             enc_caps = tuple(int(c) for c in enc.capacities)
             time_scale = float(enc.time_scale)
+            state_module, queue_cap = enc.state_module, int(enc.queue_cap)
         else:
             enc_caps = caps
             time_scale = 86400.0
+            state_module, queue_cap = "mlp", 0
         state_dev = _state_device(policy.init_state())
         if state_dev is not None and state_dev != self.device:
             raise ValueError(
@@ -737,7 +782,8 @@ class DeviceSimulator:
             names=names, caps=caps, enc_caps=enc_caps,
             window=int(self.config.window), n_envs=N, n_jobs=J,
             rounds=rounds, backfill=bool(self.config.backfill),
-            requires_obs=requires_obs, time_scale=time_scale)
+            requires_obs=requires_obs, time_scale=time_scale,
+            state_module=state_module, queue_cap=queue_cap)
         self.arrays = self._pack(self.jobsets)
         self.faults_arrays = self._pack_faults(self._faults)
         self.stats = DeviceStats()

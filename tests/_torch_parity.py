@@ -47,6 +47,11 @@ def faulty_mini(pkg):
 
 # Small widths, as tests/test_serve.py sizes its agent.
 SMALL = dict(state_hidden=(32, 16), state_out=8, module_hidden=4)
+# The attention state module at tests/test_queue_encoder.py's tiny_agent
+# widths (Q = 12, attn_dim 8, head dim 4), with both of the reference
+# default's two layers: 60 parameter leaves, as at full width.
+ATTENTION = dict(state_module="attention", queue_cap=12, attn_dim=8,
+                 attn_heads=2, attn_layers=2)
 
 
 def synth_jobs(sim, seed: int, n: int = 40):
@@ -102,7 +107,8 @@ class SlotPolicy:
 
 def agent_pair(resources, seed: int = 0, **overrides):
     """A JAX agent and a port agent (CPU) holding the same weights,
-    copied from the JAX one."""
+    copied from the JAX one; ``overrides`` are ``AgentConfig`` fields of
+    both packages (``**ATTENTION`` for the attention state module)."""
     j_res = [jsim.ResourceSpec(r.name, r.capacity, r.unit) for r in resources]
     t_res = [tsim.ResourceSpec(r.name, r.capacity, r.unit) for r in resources]
     kw = {**SMALL, **overrides}

@@ -316,3 +316,125 @@ def test_train_agent_on_the_card(cuda):
     assert np.isfinite(agent.last_grad_norm)
     assert all(not torch.equal(a, p) for a, p in zip(before,
                                                      agent.net.parameters()))
+
+
+# ------------------------------------------------------- masked attention
+# chip_smoke.py's grid: the main path's (4 x batch rows, 1 + Q = 129, 16)
+# at batch 1, 8 and 64, and the other instantiated head dims.
+MHA_GRID = [(4, 129, 16), (32, 129, 16), (256, 129, 16), (8, 49, 8),
+            (8, 257, 32), (8, 65, 64)]
+
+
+def _mha_case(bh, s, dh, seed, device):
+    """q, k, v, do (BH, S, dh) and lengths 0, 1, S // 2, S, then random."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((bh, s, dh))
+                                    .astype(np.float32)).to(device)
+                   for _ in range(4))
+    lens = rng.integers(0, s + 1, bh).astype(np.float32)
+    lens[:4] = (0, 1, s // 2, s)
+    return q, k, v, do, torch.from_numpy(lens).to(device)
+
+
+@pytest.mark.parametrize("bh,s,dh", MHA_GRID)
+def test_mha_kernels_match_plain_versions(cuda, bh, s, dh):
+    """B5 and both B6 kernels against their plain versions on the same
+    inputs, within 2e-5 (forward) and 1e-4 (backward) absolute; masked
+    rows and keys exactly 0."""
+    from repro_torch.kernels.flash_attention import (mha, mha_bwd_dkv,
+                                                     mha_bwd_dq, mha_bwd_ref,
+                                                     mha_fwd, mha_fwd_ref)
+    q, k, v, do, lens = _mha_case(bh, s, dh, bh + s + dh, cuda)
+    counts = (mha.launches, mha_bwd_dq.launches, mha_bwd_dkv.launches)
+    o, lse = mha_fwd(q, k, v, lens)
+    ro, rlse = mha_fwd_ref(q, k, v, lens)
+    delta = (do * ro).sum(-1)
+    grads = (mha_bwd_dq(q, k, v, do, rlse, delta, lens),
+             *mha_bwd_dkv(q, k, v, do, rlse, delta, lens))
+    refs = mha_bwd_ref(q, k, v, do, rlse, delta, lens)
+    torch.cuda.synchronize()
+    assert (mha.launches, mha_bwd_dq.launches, mha_bwd_dkv.launches) == \
+        tuple(c + 1 for c in counts)
+    torch.testing.assert_close(o, ro, rtol=0, atol=2e-5)
+    valid = lens > 0
+    torch.testing.assert_close(lse[valid], rlse[valid], rtol=0, atol=2e-5)
+    assert torch.isfinite(lse).all() and (lse[~valid] < -1e29).all()
+    assert torch.equal(o[~valid], torch.zeros_like(o[~valid]))
+    for g, r in zip(grads, refs):
+        assert g.shape == r.shape and torch.isfinite(g).all()
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-4)
+    kpos = torch.arange(s, device=cuda)[None, :] >= lens[:, None]
+    for g in (grads[0][~valid], grads[1][kpos], grads[2][kpos]):
+        assert torch.equal(g, torch.zeros_like(g))
+
+
+def test_mha_fully_masked_is_exactly_zero_on_the_card(cuda):
+    from repro_torch.kernels.flash_attention import mha
+    q, k, v, _, _ = _mha_case(8, 65, 16, 3, cuda)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    out = mha(q, k, v, torch.zeros(8, device=cuda))
+    grads = torch.autograd.grad(out.sum(), (q, k, v))
+    torch.cuda.synchronize()
+    for t in (out, *grads):
+        assert torch.isfinite(t).all() and torch.equal(t, torch.zeros_like(t))
+
+
+def test_mha_wrapper_rejects_and_never_falls_back(cuda):
+    from repro_torch.kernels.flash_attention import mha, mha_fwd
+    q, k, v, _, lens = _mha_case(4, 33, 16, 4, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        mha(q[..., :12].contiguous(), k[..., :12].contiguous(),
+            v[..., :12].contiguous(), lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        mha(q.transpose(0, 1).contiguous().transpose(0, 1), k, v, lens)
+    with pytest.raises(ValueError, match="different devices"):
+        mha(q, k.cpu(), v, lens)
+    with pytest.raises(TypeError, match="float32"):
+        mha_fwd(q.double(), k.double(), v.double(), lens)
+
+
+def test_attention_train_step_kernel_backend_matches_torch_backend(cuda):
+    """The attention state module's loss and 60 gradient leaves from the
+    same weights and batch: the kernel backend (25 forward, 21 dgrad and 25
+    wgrad fused-MLP launches, 2 of each attention kernel) against autograd
+    through plain ops."""
+    from dataclasses import replace
+
+    from repro_torch.convert import leaves
+    from repro_torch.core.dfp import loss_fn
+    from repro_torch.kernels.flash_attention import (mha, mha_bwd_dkv,
+                                                     mha_bwd_dq)
+    from repro_torch.kernels.fused_mlp import fused_mlp_dgrad, fused_mlp_wgrad
+    _, agent = _small_trainer(state_module="attention", queue_cap=24,
+                              attn_dim=32, attn_heads=2)
+    cfg = agent.dfp
+    rng = np.random.default_rng(5)
+    b, m, t, q, jd = 64, cfg.n_measurements, cfg.n_offsets, 24, 4
+    state = rng.uniform(0, 1, (b, cfg.state_dim)).astype(np.float32)
+    qlen = rng.integers(0, q + 1, b)
+    for i, n in enumerate(qlen):
+        state[i, n * jd:q * jd] = 0.0
+    state[:, q * jd] = qlen
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in {
+        "state": state,
+        "meas": rng.uniform(0, 1, (b, m)).astype(np.float32),
+        "goal": rng.dirichlet(np.ones(m), b).astype(np.float32),
+        "action": rng.integers(0, cfg.n_actions, b).astype(np.int32),
+        "target": rng.standard_normal((b, t, m)).astype(np.float32),
+        "target_mask": (rng.uniform(size=(b, t)) < 0.7).astype(np.float32),
+    }.items()}
+    params = [p for _, p in leaves(agent.net)]
+    counters = (fused_mlp, fused_mlp_dgrad, fused_mlp_wgrad, mha, mha_bwd_dq,
+                mha_bwd_dkv)
+    for c in counters:
+        c.launches = 0
+    loss_k = loss_fn(agent.net, cfg, batch)
+    grads_k = torch.autograd.grad(loss_k, params)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [25, 21, 25, 2, 2, 2]
+    loss_t = loss_fn(agent.net, replace(cfg, backend="torch"), batch)
+    grads_t = torch.autograd.grad(loss_t, params)
+    assert len(grads_k) == 60
+    torch.testing.assert_close(loss_k, loss_t, rtol=1e-4, atol=0.0)
+    for (name, _), gk, gt in zip(leaves(agent.net), grads_k, grads_t):
+        torch.testing.assert_close(gk, gt, rtol=1e-3, atol=1e-4, msg=name)

@@ -59,5 +59,8 @@ def test_scan_covers_every_slice():
                  "repro_torch.core.policies",
                  "repro_torch.core.replay",
                  "repro_torch.core.train",
-                 "repro_torch.nn.optim"):
+                 "repro_torch.nn.optim",
+                 "repro_torch.nn.queue_encoder",
+                 "repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.kernels.flash_attention.kernel"):
         assert name in MODULES, name
