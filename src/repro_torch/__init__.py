@@ -2,8 +2,10 @@
 is the reference).  This package imports torch and numpy, never jax and
 nothing of ``repro``; each module mirrors its counterpart in ``repro``.
 
-Ported so far: the decision-service path — host simulator, Theta
-workloads, state encoding, the DFP network (inference, "mlp" state
-module) with the fused-MLP forward as a CUDA kernel for Hopper, the
-evaluation-mode agent, and the micro-batched decision service.
+Ported so far: the scheduler's paths — host simulator, Theta workloads,
+state encoding, the DFP network ("mlp" and "attention" state modules),
+the decision service, the device rollout engine and sequential training
+— and the LM zoo's prefill (configs, batches, the decoder stack for the
+dense, vlm, audio, ssm and hybrid families), with every TPU kernel of
+the reference as a CUDA kernel for Hopper (``kernels/``).
 """

@@ -1,4 +1,5 @@
-"""Carry DFP weights between the JAX package and this one.
+"""Carry weights between the JAX package and this one: the DFP network's
+(below) and the LM zoo's (``lm_params_from_jax``).
 
 The JAX package keeps the weights as a tree of nested dicts and lists,
 ``{"state" | "measurement" | "goal" | "expectation" | "action":
@@ -46,6 +47,38 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     flat: Dict[str, np.ndarray] = {}
     _flatten(tree, "", flat)
     return {k: torch.from_numpy(np.array(v)) for k, v in flat.items()}
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A numpy leaf as a tensor; bfloat16 (an ml_dtypes type numpy cannot
+    hand to torch) goes through float32, which holds it exactly."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def lm_params_from_jax(tree, cfg, *, device="cpu"):
+    """The JAX package's LM parameter tree (``models.transformer.
+    init_params``) for ``cfg`` as this package's ``models.LM``, same dtype.
+    The reference stacks the layers along a leading L dim; here leaf
+    ``stack.<name>`` of shape (L, ...) becomes ``stack.<i>.<name>`` for
+    i < L.  ``shared_blocks`` keep their list order; weights stay
+    (in, out)."""
+    from .models.transformer import LM
+    flat: Dict[str, np.ndarray] = {}
+    _flatten(tree, "", flat)
+    state: Dict[str, torch.Tensor] = {}
+    for name, a in flat.items():
+        head, _, rest = name.partition(".")
+        if head == "stack":
+            for i in range(a.shape[0]):
+                state[f"{head}.{i}.{rest}"] = _tensor(a[i])
+        else:
+            state[name] = _tensor(a)
+    dtypes = {t.dtype for t in state.values()} - {torch.float32}
+    lm = LM(cfg, dtypes.pop() if dtypes else torch.float32, device)
+    lm.load_state_dict(state, strict=True)
+    return lm
 
 
 def _assign(net: nn.Module, arrays: List[np.ndarray], context: str) -> None:

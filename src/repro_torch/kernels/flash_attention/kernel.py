@@ -1,6 +1,7 @@
-"""Build, load and launch the masked-attention CUDA kernels, compiled for
-``sm_90a``: the forward (``csrc/mha.cu``) and the two backward kernels, dq
-and dkv (``csrc/mha_bwd.cu``), one library each, by the shared scheme of
+"""Build, load and launch the attention CUDA kernels, compiled for
+``sm_90a``: the masked forward (``csrc/mha.cu``), its two backward kernels,
+dq and dkv (``csrc/mha_bwd.cu``), and the causal flash forward of the LM
+zoo (``csrc/flash_fwd.cu``), one library each, by the shared scheme of
 ``kernels/_build.py``; nothing here runs when the module is imported."""
 from __future__ import annotations
 
@@ -14,8 +15,14 @@ from .._build import BuildInfo, build_library, check_launch, load_library
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mha.cu"
 BWD_SOURCE = SOURCE.with_name("mha_bwd.cu")
+FLASH_SOURCE = SOURCE.with_name("flash_fwd.cu")
 
-HEAD_DIMS = (8, 16, 32, 64)     # the dh the kernels are instantiated for
+HEAD_DIMS = (8, 16, 32, 64)     # the dh the mha kernels are instantiated for
+# The dh the flash kernel is instantiated for: the LM configs' (zamba2-7b's
+# shared blocks 112, gemma-2b 256, nemotron 192, most others 64 or 128),
+# the reference tests' (32, 64, 128) and the smoke configs' (16).
+FLASH_HEAD_DIMS = (16, 32, 64, 112, 128, 192, 256)
+FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def build() -> BuildInfo:
@@ -26,6 +33,12 @@ def build() -> BuildInfo:
 def build_backward() -> BuildInfo:
     """Compile the backward library if this source has not been built yet."""
     return build_library("mha_bwd", BWD_SOURCE)
+
+
+def build_flash() -> BuildInfo:
+    """Compile the flash forward library if this source has not been
+    built yet."""
+    return build_library("flash_fwd", FLASH_SOURCE)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -48,6 +61,14 @@ def _backward_library() -> ctypes.CDLL:
                                       + [ctypes.c_float, _P])
     lib.mrsch_mha_bwd_dq.restype = ctypes.c_int
     lib.mrsch_mha_bwd_dkv.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _flash_library() -> ctypes.CDLL:
+    lib = load_library(build_flash())
+    lib.mrsch_flash_fwd.argtypes = [_P] * 4 + [_I] * 8 + [ctypes.c_float, _P]
+    lib.mrsch_flash_fwd.restype = ctypes.c_int
     return lib
 
 
@@ -107,3 +128,22 @@ def mha_backward_dkv(q, k, v, do, lse, delta, lengths) -> tuple:
             _stream(q.device))
     check_launch(lib, "mha_bwd_dkv", err, f"BH={bh} Sq={sq} Sk={sk} dh={dh}")
     return dk, dv
+
+
+def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool) -> torch.Tensor:
+    """Launch B7 on CUDA tensors the caller has checked: q (B, Sq, H, dh),
+    k and v (B, Sk, KV, dh), one dtype, contiguous, on one device ->
+    o (B, Sq, H, dh)."""
+    b, sq, h, dh = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    lib = _flash_library()
+    with torch.cuda.device(q.device):
+        err = lib.mrsch_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                  o.data_ptr(), b, sq, sk, h, kv, dh,
+                                  int(causal), FLASH_DTYPES[q.dtype],
+                                  dh ** -0.5, _stream(q.device))
+    check_launch(lib, "flash_fwd", err,
+                 f"B={b} Sq={sq} Sk={sk} H={h} KV={kv} dh={dh}")
+    return o

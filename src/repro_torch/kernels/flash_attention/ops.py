@@ -1,7 +1,10 @@
-"""Public wrappers of the masked non-causal attention: ``mha(q, k, v,
-lengths)``, which is differentiable in q, k and v, and the three kernels
+"""Public wrappers of the attention kernels: ``flash_attention(q, k, v,
+causal=...)`` (B7), the LM zoo's causal attention in the models' layout,
+forward only — the JAX package's ``kernels/flash_attention/ops.py::
+flash_attention`` — and the masked non-causal attention ``mha(q, k, v,
+lengths)``, which is differentiable in q, k and v, with the three kernels
 under it, ``mha_fwd`` (B5), ``mha_bwd_dq`` and ``mha_bwd_dkv`` (B6) — the
-JAX package's ``kernels/flash_attention/ops.py::mha``.
+same file's ``mha``.
 
 A tensor on the CPU goes through the plain PyTorch versions (``ref.py``);
 a CUDA tensor launches the hand-written kernels (``kernel.py``) or raises,
@@ -20,7 +23,50 @@ from typing import Optional
 import torch
 
 from . import kernel
-from .ref import mha_bwd_ref, mha_fwd_ref
+from .ref import flash_attention_ref, mha_bwd_ref, mha_fwd_ref
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Softmax attention of q (B, Sq, H, dh) over k and v (B, Sk, KV, dh)
+    -> (B, Sq, H, dh) in q's dtype (B7).  KV must divide H: query head h
+    reads KV head h // (H // KV), with no repeat.  With ``causal`` query i
+    sees keys j <= i, top-left aligned when Sq != Sk.  float32 or bfloat16,
+    contiguous; no padding (the JAX wrapper pads to the TPU block).  On the
+    card dh must be one of ``kernel.FLASH_HEAD_DIMS``; a CPU tensor takes
+    the plain version."""
+    named = {"q": q, "k": k, "v": v}
+    shapes = {n: tuple(t.shape) for n, t in named.items()}
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: expected q (B, Sq, H, dh), k and "
+                         f"v (B, Sk, KV, dh), got {shapes}")
+    b, sq, h, dh = q.shape
+    kv = k.shape[2]
+    if (k.shape[0], k.shape[3]) != (b, dh) or kv < 1 or h % kv:
+        raise ValueError(f"flash_attention: shape mismatch {shapes}")
+    if min(b, sq, h, dh, k.shape[1]) < 1:
+        raise ValueError(f"flash_attention: empty operand {shapes}")
+    if q.dtype not in kernel.FLASH_DTYPES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: operands must share a dtype of "
+                        f"{tuple(kernel.FLASH_DTYPES)}, got "
+                        f"{ {n: t.dtype for n, t in named.items()} }")
+    if not all(t.is_contiguous() for t in named.values()):
+        raise ValueError("flash_attention: operands must be contiguous")
+    if any(t.device != q.device for t in named.values()):
+        raise ValueError(f"flash_attention: operands on different devices "
+                         f"{[str(t.device) for t in named.values()]}")
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if dh not in kernel.FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {dh} has no kernel; "
+                         f"expected one of {kernel.FLASH_HEAD_DIMS}")
+    with torch.profiler.record_function("mrsch.kernel.flash_attention"):
+        out = kernel.flash_forward(q, k, v, causal)
+    flash_attention.launches += 1
+    return out
 
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -135,7 +181,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 #: Kernel launches since the count was last set to 0 (CPU calls excluded):
-#: ``mha.launches`` counts B5, the other two B6's kernels.
+#: ``flash_attention.launches`` counts B7, ``mha.launches`` B5, the other
+#: two B6's kernels.
+flash_attention.launches = 0
 mha.launches = 0
 mha_bwd_dq.launches = 0
 mha_bwd_dkv.launches = 0

@@ -1,7 +1,12 @@
-"""Plain PyTorch versions of the masked non-causal attention (the JAX
-package's ``kernels/flash_attention/ref.py`` and the arithmetic of its
-``mha_fwd_kernel`` / ``mha_bwd_kernels``): the CPU path, and the oracles
-the CUDA kernels are held against on the card.  All in float32.
+"""Plain PyTorch versions of the attention kernels (the JAX package's
+``kernels/flash_attention/ref.py`` and the arithmetic of its
+``flash_attention_kernel``, ``mha_fwd_kernel`` and ``mha_bwd_kernels``):
+the CPU path, and the oracles the CUDA kernels are held against on the
+card.
+
+``flash_attention_ref`` is B7's: causal or full attention in the models'
+layout, float32 scores and sums, with p rounded to v's dtype before p . v.
+The rest is the masked non-causal attention (B5, B6), all in float32.
 
 Keys at positions ``>= length`` of their batch-head row are masked, the
 positions compared in float32; queries are never masked.  A row with
@@ -47,6 +52,32 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kmask is not None:
         w = torch.where(kmask, w, 0.0)
     return torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """B7's function, in one key block: q (B, Sq, H, dh), k and v
+    (B, Sk, KV, dh) -> (B, Sq, H, dh) in q's dtype.  Query head h reads KV
+    head h // (H // KV); with ``causal`` query i sees keys j <= i (top-left
+    aligned when Sq != Sk).  Scores and sums are float32; m is the row's
+    max, p = exp(s - m), l = sum p, and o = (p in v's dtype) . v / max(l,
+    1e-30), as the kernel finalises its online softmax."""
+    b, sq, h, dh = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, sq, kv, g, dh)
+    s = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * dh ** -0.5
+    if causal:
+        sk = k.shape[1]
+        cmask = (torch.arange(sq, device=s.device)[:, None]
+                 >= torch.arange(sk, device=s.device)[None, :])
+        s = torch.where(cmask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bkgst,btkd->bkgsd", p.to(v.dtype).float(), v.float())
+    o = (o / l).to(q.dtype)                                  # (b,kv,g,sq,dh)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
 
 
 def mha_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,0 +1,32 @@
+"""Step builders of the LM zoo (the JAX package's ``launch/steps.py``).
+
+``make_prefill_step`` is the serving path's prefill: one full-sequence
+forward that returns the last token's logits.  PyTorch runs eagerly, so a
+step is a plain function (the reference's is ``jit``-able and carries
+sharding plumbing, which one card does not need).  The train and decode
+steps wait for their items of the roadmap.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..models import transformer
+from ..nn.backend import resolve_backend
+
+
+def make_prefill_step(cfg: ModelConfig, backend: str = "kernel"
+                      ) -> Callable[..., torch.Tensor]:
+    """``prefill_step(params, batch)`` -> logits of the last position,
+    (B, V[, K]) float32, on the device of ``params``."""
+    transformer.check_supported(cfg)
+    resolve_backend(backend)
+
+    def prefill_step(params: transformer.LM,
+                     batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        logits = transformer.forward(params, cfg, batch, backend=backend)
+        return logits[:, -1]
+
+    return prefill_step

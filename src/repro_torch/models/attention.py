@@ -1,0 +1,144 @@
+"""GQA/MQA self-attention for train and prefill (the JAX package's
+``models/attention.py``).
+
+Path selection, as in the reference (``attention_apply``):
+
+* ``S <= dense_threshold``: ``dense_attention``, the full score matrix in
+  plain PyTorch (XLA einsums in the reference), on both backends;
+* ``S > dense_threshold``: on the ``"kernel"`` backend the causal flash
+  kernel B7 (``kernels.flash_attention.flash_attention``: the CUDA kernel
+  on the card, its plain version on the CPU); on the ``"torch"`` backend
+  ``flash_attention_scan``, the reference's online softmax over blocks of
+  1024 keys, as a Python loop.  Both keep the reference's head order:
+  query head h reads KV head h // (H // KV).
+
+The one-token decode path (``decode_attention_apply``) waits for the
+decode item of the roadmap.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..distributed.sharding import shard, tp_row_matmul
+from ..kernels.flash_attention import flash_attention
+from ..nn.backend import resolve_backend
+from .layers import _init_dense, apply_rope, empty_param
+
+NEG_INF = -1e30
+
+
+class Attention(nn.Module):
+    def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
+                 head_dim: int, dtype, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.wq = empty_param(d_model, n_heads * head_dim, **kw)
+        self.wk = empty_param(d_model, n_kv_heads * head_dim, **kw)
+        self.wv = empty_param(d_model, n_kv_heads * head_dim, **kw)
+        self.wo = empty_param(n_heads * head_dim, d_model, **kw)
+
+    def reset_parameters(self, generator=None) -> None:
+        for p in (self.wq, self.wk, self.wv, self.wo):
+            _init_dense(p, generator)
+
+
+def attention_init(d_model: int, n_heads: int, n_kv_heads: int,
+                   head_dim: int, dtype, *, generator,
+                   device=None) -> Attention:
+    m = Attention(d_model, n_heads, n_kv_heads, head_dim, dtype, device)
+    m.reset_parameters(generator)
+    return m
+
+
+def _project_qkv(params: Attention, x, n_heads, n_kv_heads, head_dim,
+                 positions, rope_theta, rope_fraction):
+    B, S, _ = x.shape
+    q = (x @ params.wq).reshape(B, S, n_heads, head_dim)
+    k = (x @ params.wk).reshape(B, S, n_kv_heads, head_dim)
+    v = (x @ params.wv).reshape(B, S, n_kv_heads, head_dim)
+    if rope_theta:
+        q = apply_rope(q, positions, rope_theta, rope_fraction)
+        k = apply_rope(k, positions, rope_theta, rope_fraction)
+    return q, k, v
+
+
+def _group_heads(q: torch.Tensor, n_kv_heads: int) -> torch.Tensor:
+    """(B, S, H, dh) -> (B, S, KV, G, dh), splitting query heads into KV
+    groups."""
+    B, S, H, dh = q.shape
+    return q.reshape(B, S, n_kv_heads, H // n_kv_heads, dh)
+
+
+def dense_attention(q, k, v, causal: bool = True,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Full-matrix grouped attention.  q (B, S, KV, G, dh), k and v
+    (B, T, KV, dh)."""
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bskgd,btkd->bkgst", q, k).float() * scale
+    if causal:
+        S, T = scores.shape[-2], scores.shape[-1]
+        qpos = torch.arange(S, device=q.device)[:, None] + q_offset
+        mask = qpos >= torch.arange(T, device=q.device)[None, :]
+        scores = torch.where(mask, scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bkgst,btkd->bskgd", w, v)
+
+
+def flash_attention_scan(q, k, v, block_k: int = 1024,
+                         causal: bool = True) -> torch.Tensor:
+    """Online softmax over blocks of ``block_k`` keys.  q (B, S, KV, G, dh),
+    k and v (B, T, KV, dh).  The reference's ``lax.scan`` over blocks is a
+    Python loop here; the arithmetic per block is the same."""
+    B, S, KV, G, dh = q.shape
+    dv = v.shape[-1]
+    T = k.shape[1]
+    scale = dh ** -0.5
+    qpos = torch.arange(S, device=q.device)[:, None]
+    m = torch.full((B, KV, G, S), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KV, G, S), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, S, dv), dtype=torch.float32,
+                      device=q.device)
+    for start in range(0, T, block_k):
+        kblk = k[:, start:start + block_k]
+        vblk = v[:, start:start + block_k]
+        n = kblk.shape[1]
+        if n < block_k:             # the reference pads the last block
+            kblk = torch.nn.functional.pad(kblk, (0, 0, 0, 0, 0, block_k - n))
+            vblk = torch.nn.functional.pad(vblk, (0, 0, 0, 0, 0, block_k - n))
+        s = torch.einsum("bskgd,btkd->bkgst", q, kblk).float() * scale
+        kpos = start + torch.arange(block_k, device=q.device)[None, :]
+        valid = kpos < T
+        if causal:
+            valid = valid & (qpos >= kpos)
+        s = torch.where(valid, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bkgst,btkd->bkgsd", p.to(q.dtype), vblk)
+        acc = acc * alpha[..., None] + pv.float()
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)        # (B, S, KV, G, dh)
+
+
+def attention_apply(params: Attention, x, positions, *, n_heads, n_kv_heads,
+                    head_dim, rope_theta=10_000.0, rope_fraction=1.0,
+                    causal=True, dense_threshold: int = 2048,
+                    backend: str = "kernel") -> torch.Tensor:
+    """Self-attention for train and prefill.  x (B, S, D)."""
+    B, S, D = x.shape
+    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim,
+                           positions, rope_theta, rope_fraction)
+    if S <= dense_threshold:
+        out = dense_attention(_group_heads(q, n_kv_heads), k, v,
+                              causal=causal)
+    elif resolve_backend(backend) == "kernel":
+        out = flash_attention(q, k, v, causal=causal)
+    else:
+        out = flash_attention_scan(_group_heads(q, n_kv_heads), k, v,
+                                   causal=causal)
+    out = out.reshape(B, S, n_heads * head_dim)
+    return shard(tp_row_matmul(out, params.wo), "batch", "act_seq", None)

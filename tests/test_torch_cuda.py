@@ -438,3 +438,201 @@ def test_attention_train_step_kernel_backend_matches_torch_backend(cuda):
     torch.testing.assert_close(loss_k, loss_t, rtol=1e-4, atol=0.0)
     for (name, _), gk, gt in zip(leaves(agent.net), grads_k, grads_t):
         torch.testing.assert_close(gk, gt, rtol=1e-3, atol=1e-4, msg=name)
+
+
+# ------------------------------------------------ LM zoo: B7 (flash), B8 (ssd)
+# The reference tests' grid (B, S, H, KV, dh), then every head dim the flash
+# kernel is instantiated for, at a ragged S (not a multiple of 64).
+FLASH_GRID = [(1, 128, 2, 2, 64), (2, 200, 4, 2, 64), (1, 384, 8, 1, 128),
+              (2, 256, 6, 6, 32)] + [(1, 203, 4, 2, dh)
+                                     for dh in (16, 32, 64, 112, 128, 192, 256)]
+FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+
+
+def _flash_case(b, sq, sk, h, kv, dh, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(device, dtype) for shape in ((b, sq, h, dh), (b, sk, kv, dh),
+                                             (b, sk, kv, dh))]
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh", FLASH_GRID)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_plain_version(cuda, b, s, h, kv, dh, dtype,
+                                            causal):
+    """B7 against its plain version (rtol = atol = 2e-4 float32, 2e-2
+    bfloat16, the reference's tolerances) and, in float32, against the
+    dense ``attention_ref`` with the KV heads repeated."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention,
+                                                     flash_attention_ref)
+    q, k, v = _flash_case(b, s, s, h, kv, dh, dtype, s + h + dh, cuda)
+    launches = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    ref = flash_attention_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    if dtype == torch.float32:
+        def flat(t):
+            t = t.repeat_interleave(h // t.shape[2], dim=2)
+            return t.transpose(1, 2).reshape(b * h, s, dh)
+        dense = attention_ref(flat(q), flat(k), flat(v), causal=causal)
+        torch.testing.assert_close(
+            out.transpose(1, 2).reshape(b * h, s, dh), dense, rtol=tol,
+            atol=tol)
+
+
+@pytest.mark.parametrize("sq,sk", [(100, 260), (260, 100), (1, 300)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_with_unequal_lengths(cuda, sq, sk, causal):
+    """Sq != Sk: keys masked past Sk, and the causal mask aligned top-left
+    (query i sees keys j <= i), as in the reference."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    q, k, v = _flash_case(2, sq, sk, 4, 4, 64, torch.float32, sq + sk, cuda)
+    out = flash_attention(q, k, v, causal=causal)
+    torch.testing.assert_close(out, flash_attention_ref(q, k, v, causal),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_flash_wrapper_rejects_and_never_falls_back(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = _flash_case(1, 70, 70, 4, 2, 64, torch.float32, 0, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(*(t[..., :48].contiguous() for t in (q, k, v)))
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="different devices"):
+        flash_attention(q, k.cpu(), v)
+
+
+def _ssd_case(b, s, h, p, n, g, dtype, seed, device):
+    """The reference test's distributions: x normal, dt softplus(normal),
+    dA = -dt exp(0.3 normal per head), B and C 0.3 normal (per group)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    dA = (-dt * np.exp(rng.standard_normal(h) * 0.3)).astype(np.float32)
+    bm, cm = ((rng.standard_normal((b, s, g, n)) * 0.3).astype(np.float32)
+              for _ in range(2))
+    t = lambda a: torch.from_numpy(a).to(device)
+    return t(x).to(dtype), t(dt), t(dA), t(bm).to(dtype), t(cm).to(dtype)
+
+
+def _ssd_oracle(x, dt, dA, bm, cm):
+    """``ssd_ref`` (the exact recurrence) in the models' layout, with the
+    groups repeated per head."""
+    from repro_torch.kernels.ssd import ssd_ref
+    b, s, h, p = x.shape
+
+    def flat(t):
+        t = t.repeat_interleave(h // t.shape[2], dim=2) if t.dim() == 4 \
+            else t[..., None]
+        return t.transpose(1, 2).reshape(b * h, s, t.shape[-1])
+
+    y = ssd_ref(flat(x), flat(dt), flat(dA), flat(bm), flat(cm))
+    return y.reshape(b, h, s, p).transpose(1, 2)
+
+
+# The reference tests' grid (B, S, H, P, N, chunk) with one group per head,
+# then the LM configs' shapes at a ragged S: zamba2-7b (N 64) and
+# mamba2-1.3b (N 128), one group over 4 heads.
+SSD_GRID = [(1, 64, 2, 16, 8, 16, 2), (2, 100, 3, 16, 8, 32, 3),
+            (1, 256, 4, 32, 16, 64, 4), (1, 600, 4, 64, 64, 256, 1),
+            (1, 600, 4, 64, 128, 256, 1)]
+SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
+# Float32 y against the plain chunked version: both widen x, B and C and do
+# all their arithmetic in float32, so they differ only in summation order,
+# whatever x's dtype.
+SSD_PLAIN_TOL = 1e-4
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,g", SSD_GRID)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain_versions(cuda, b, s, h, p, n, chunk, g,
+                                           dtype):
+    """B8 in x's dtype against the exact recurrence ``ssd_ref`` (rtol =
+    atol = 1e-3 float32, 5e-2 bfloat16, the reference's tolerances), and
+    with float32 y, as the models take it, against its plain chunked
+    version (1e-4 for both dtypes)."""
+    from repro_torch.kernels.ssd import ssd, ssd_plain
+    x, dt, dA, bm, cm = _ssd_case(b, s, h, p, n, g, dtype, s + n, cuda)
+    launches = ssd.launches
+    y = ssd(x, dt, dA, bm, cm, chunk=chunk)
+    y32 = ssd(x, dt, dA, bm, cm, chunk=chunk, out_dtype=torch.float32)
+    plain = ssd_plain(x, dt, dA, bm, cm, chunk=chunk,
+                      out_dtype=torch.float32)
+    oracle = _ssd_oracle(x, dt, dA, bm, cm)
+    torch.cuda.synchronize()
+    assert ssd.launches == launches + 2
+    assert y.dtype == dtype and y32.dtype == torch.float32
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), oracle.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(y32, plain, rtol=SSD_PLAIN_TOL,
+                               atol=SSD_PLAIN_TOL)
+
+
+def test_ssd_kernel_reads_strided_slices(cuda):
+    """The model hands B8 slices of one fused projection (token stride
+    larger than H * P): the result equals that of contiguous copies."""
+    from repro_torch.kernels.ssd import ssd
+    b, s, h, p, n = 2, 300, 4, 64, 64
+    rng = np.random.default_rng(8)
+    fused = torch.from_numpy(rng.standard_normal(
+        (b, s, h * p + 2 * n)).astype(np.float32) * 0.3).to(cuda)
+    x = fused[..., :h * p].reshape(b, s, h, p)
+    bm = fused[..., h * p:h * p + n].reshape(b, s, 1, n)
+    cm = fused[..., h * p + n:].reshape(b, s, 1, n)
+    _, dt, dA, _, _ = _ssd_case(b, s, h, p, n, 1, torch.float32, 9, cuda)
+    got = ssd(x, dt, dA, bm, cm, chunk=256)
+    want = ssd(x.contiguous(), dt, dA, bm.contiguous(), cm.contiguous(),
+               chunk=256)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_ssd_wrapper_rejects_and_never_falls_back(cuda):
+    from repro_torch.kernels.ssd import ssd
+    x, dt, dA, bm, cm = _ssd_case(1, 64, 2, 16, 8, 2, torch.float32, 1, cuda)
+    with pytest.raises(ValueError, match="no kernel"):
+        ssd(x[..., :8].contiguous(), dt, dA, bm, cm, chunk=16)
+    with pytest.raises(ValueError, match="no kernel"):
+        ssd(x, dt, dA, bm, cm, chunk=2048)
+    with pytest.raises(TypeError, match="dtype"):
+        ssd(x.half(), dt, dA, bm.half(), cm.half(), chunk=16)
+    with pytest.raises(ValueError, match="stride"):
+        ssd(x.transpose(2, 3).contiguous().transpose(2, 3), dt, dA, bm, cm,
+            chunk=16)
+    with pytest.raises(ValueError, match="different devices"):
+        ssd(x, dt, dA, bm.cpu(), cm, chunk=16)
+
+
+def test_lm_prefill_kernel_backend_matches_torch_backend(cuda):
+    """A zamba2-7b smoke model (4 Mamba2 layers, 2 shared attention
+    blocks) past the dense threshold (S = 2176 > 2048): the kernel backend
+    launches B7 twice and B8 four times per forward and its last-token
+    logits match the plain backend's within 1e-3."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import make_batch
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.launch import make_prefill_step
+    from repro_torch.models import init_params
+    cfg = smoke_config("zamba2-7b")
+    params = init_params(cfg, generator=torch.Generator(cuda).manual_seed(1),
+                         device=cuda, dtype=torch.float32)
+    batch = make_batch(cfg, InputShape("t", 2176, 1, "prefill"), device=cuda)
+    flash_attention.launches = ssd.launches = 0
+    got = make_prefill_step(cfg)(params, batch)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, ssd.launches) == (2, 4)
+    want = make_prefill_step(cfg, backend="torch")(params, batch)
+    assert got.shape == (1, cfg.vocab_size) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)

@@ -62,5 +62,18 @@ def test_scan_covers_every_slice():
                  "repro_torch.nn.optim",
                  "repro_torch.nn.queue_encoder",
                  "repro_torch.kernels.flash_attention.ops",
-                 "repro_torch.kernels.flash_attention.kernel"):
+                 "repro_torch.kernels.flash_attention.kernel",
+                 "repro_torch.configs",
+                 "repro_torch.configs.base",
+                 "repro_torch.configs.zamba2_7b",
+                 "repro_torch.distributed.sharding",
+                 "repro_torch.data.pipeline",
+                 "repro_torch.models.layers",
+                 "repro_torch.models.attention",
+                 "repro_torch.models.mamba2",
+                 "repro_torch.models.transformer",
+                 "repro_torch.launch.steps",
+                 "repro_torch.kernels.ssd.ops",
+                 "repro_torch.kernels.ssd.kernel",
+                 "repro_torch.kernels.ssd.ref"):
         assert name in MODULES, name

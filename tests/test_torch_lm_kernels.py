@@ -1,0 +1,242 @@
+"""The LM zoo's kernels in the port, on their plain paths (the CPU), against
+the JAX package: ``flash_attention`` (B7) against the Pallas
+``flash_attention`` in interpret mode and the dense ``attention_ref``;
+``ssd`` (B8) against the Pallas ``ssd`` in interpret mode and the exact
+recurrence ``ssd_ref``; the model's ``_ssd_chunked`` against the
+reference's.  Inputs come from numpy with a seed; the tolerances are the
+reference tests' (``tests/test_kernels.py``)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ops import flash_attention as jflash
+from repro.kernels.flash_attention.ref import attention_ref as jattention_ref
+from repro.kernels.ssd.ops import ssd as jssd
+from repro.kernels.ssd.ref import ssd_ref as jssd_ref
+from repro.models.mamba2 import _ssd_chunked as j_ssd_chunked
+from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 flash_attention,
+                                                 flash_attention_ref)
+from repro_torch.kernels.ssd import ssd, ssd_chunk_ref, ssd_plain, ssd_ref
+from repro_torch.kernels.ssd.ref import prepare
+from repro_torch.models.mamba2 import _ssd_chunked
+
+TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+SSD_TOL = {"float32": dict(rtol=1e-3, atol=1e-3),
+           "bfloat16": dict(rtol=5e-2, atol=5e-2)}
+DT = {"float32": (jnp.float32, torch.float32),
+      "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _both(a: np.ndarray, dtype: str):
+    """One float32 numpy array as a JAX array and a tensor of ``dtype``
+    (the same bfloat16 values on both sides)."""
+    jd, td = DT[dtype]
+    return jnp.asarray(a, jd), torch.from_numpy(a).to(td)
+
+
+def _np(t):
+    return np.asarray(t, np.float32) if not isinstance(t, torch.Tensor) \
+        else t.float().numpy()
+
+
+# ------------------------------------------------------------------- B7
+# tests/test_kernels.py's grid (B, S, H, KV, dh).
+FLASH_GRID = [(1, 128, 2, 2, 64), (2, 200, 4, 2, 64), (1, 384, 8, 1, 128),
+              (2, 256, 6, 6, 32)]
+
+
+@pytest.mark.parametrize("B,S,H,KV,dh", FLASH_GRID)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_reference(B, S, H, KV, dh, dtype, causal):
+    rng = np.random.default_rng(S + H)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((B, S, H, dh), (B, S, KV, dh), (B, S, KV, dh)))
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, dtype) for a in (q, k, v))
+    out = flash_attention(tq, tk, tv, causal=causal)
+    assert out.dtype == DT[dtype][1] and out.shape == (B, S, H, dh)
+    np.testing.assert_allclose(_np(out), _np(jflash(jq, jk, jv,
+                                                    causal=causal)),
+                               **TOL[dtype])
+
+    def flat(a):                        # repeat KV heads, (B*H, S, dh)
+        a = jnp.repeat(a, H // a.shape[2], 2)
+        return a.transpose(0, 2, 1, 3).reshape(B * H, S, dh)
+
+    dense = jattention_ref(flat(jq), flat(jk), flat(jv), causal=causal)
+    dense = dense.reshape(B, H, S, dh).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_np(out), _np(dense), **TOL[dtype])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_unequal_lengths(causal):
+    """Sq != Sk: the reference's cross-length case (non-causal), and the
+    causal mask aligned top-left, as in the Pallas kernel."""
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((2, 100, 4, 64)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 260, 4, 64)).astype(np.float32)
+            for _ in range(2))
+    out = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                          causal=causal)
+    ref = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                 causal=causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL["float32"])
+    if not causal:
+        dense = jattention_ref(
+            *(jnp.asarray(a).transpose(0, 2, 1, 3).reshape(8, -1, 64)
+              for a in (q, k, v)), causal=False)
+        np.testing.assert_allclose(
+            out.numpy(), np.asarray(dense).reshape(2, 4, 100, 64)
+            .transpose(0, 2, 1, 3), **TOL["float32"])
+
+
+def test_flash_plain_version_is_the_dense_attention():
+    """The port's own plain versions agree: ``flash_attention_ref`` (B7's)
+    and the dense ``attention_ref`` with the KV heads repeated, causal."""
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(rng.standard_normal((2, 70, 6, 32))
+                         .astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 70, 2, 32))
+                             .astype(np.float32)) for _ in range(2))
+    got = flash_attention_ref(q, k, v, causal=True)
+    flat = lambda t: (t.repeat_interleave(6 // t.shape[2], 2)
+                      .transpose(1, 2).reshape(12, 70, 32))
+    want = attention_ref(flat(q), flat(k), flat(v), causal=True)
+    torch.testing.assert_close(got.transpose(1, 2).reshape(12, 70, 32),
+                               want, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_checks_its_operands():
+    q = torch.zeros(1, 8, 4, 16)
+    with pytest.raises(ValueError, match="shape"):
+        flash_attention(q, torch.zeros(1, 8, 3, 16), torch.zeros(1, 8, 3, 16))
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention(q, q.double(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), q, q)
+
+
+# ------------------------------------------------------------------- B8
+# tests/test_kernels.py's grid (B, S, H, P, N, chunk).
+SSD_GRID = [(1, 64, 2, 16, 8, 16), (2, 100, 3, 16, 8, 32),
+            (1, 256, 4, 32, 16, 64)]
+
+
+def _ssd_case(B, S, H, P, N, seed, G=None):
+    """The reference test's distributions, in numpy: x normal, dt
+    softplus(normal), dA = -dt exp(0.3 normal per head), B and C 0.3
+    normal (per head, or per group with ``G``)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H)))).astype(np.float32)
+    dA = (-dt * np.exp(rng.standard_normal(H) * 0.3)).astype(np.float32)
+    bm, cm = ((rng.standard_normal((B, S, G or H, N)) * 0.3)
+              .astype(np.float32) for _ in range(2))
+    return x, dt, dA, bm, cm
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_GRID)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_matches_reference(B, S, H, P, N, chunk, dtype):
+    """x, B and C in ``dtype`` (dt, dA float32), as the reference test
+    makes them: the port's ``ssd`` against the Pallas ``ssd`` and against
+    ``ssd_ref``, both the reference's and the port's."""
+    x, dt, dA, bm, cm = _ssd_case(B, S, H, P, N, seed=S)
+    (jx, tx), (jb, tb), (jc, tc) = (_both(a, dtype) for a in (x, bm, cm))
+    jdt, jdA = jnp.asarray(dt), jnp.asarray(dA)
+    tdt, tdA = torch.from_numpy(dt), torch.from_numpy(dA)
+    y = ssd(tx, tdt, tdA, tb, tc, chunk=chunk)
+    assert y.dtype == DT[dtype][1] and y.shape == (B, S, H, P)
+    np.testing.assert_allclose(_np(y), _np(jssd(jx, jdt, jdA, jb, jc,
+                                                 chunk=chunk)),
+                               **SSD_TOL[dtype])
+
+    def jflat(a, d):
+        return a.transpose(0, 2, 1, 3).reshape(B * H, S, d)
+
+    col = lambda a: a.transpose(0, 2, 1).reshape(B * H, S, 1)
+    yr = jssd_ref(jflat(jx, P), col(jdt), col(jdA), jflat(jb, N),
+                  jflat(jc, N))
+    yr = np.asarray(yr, np.float32).reshape(B, H, S, P).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_np(y), yr, **SSD_TOL[dtype])
+    tflat = lambda t, d: t.transpose(1, 2).reshape(B * H, S, d)
+    tcol = lambda t: t.transpose(1, 2).reshape(B * H, S, 1)
+    yt = ssd_ref(tflat(tx, P), tcol(tdt), tcol(tdA), tflat(tb, N),
+                 tflat(tc, N))
+    np.testing.assert_allclose(
+        _np(yt).reshape(B, H, S, P).transpose(0, 2, 1, 3), yr,
+        **SSD_TOL[dtype])
+
+
+def test_ssd_reads_groups_as_the_reference_repeats_them():
+    """B and C by group (G = 1 over 4 heads, the models' n_groups) give what
+    the reference gives with them repeated per head, float32 out of
+    bfloat16-free float32 inputs, at a ragged S (pad inside the wrapper)."""
+    B, S, H, P, N, chunk = 2, 75, 4, 16, 8, 32
+    x, dt, dA, bm, cm = _ssd_case(B, S, H, P, N, seed=11, G=1)
+    y = ssd(*(torch.from_numpy(a) for a in (x, dt, dA, bm, cm)), chunk=chunk,
+            out_dtype=torch.float32)
+    rep = lambda a: jnp.repeat(jnp.asarray(a), H, axis=2)
+    ref = jssd(jnp.asarray(x), jnp.asarray(dt), jnp.asarray(dA), rep(bm),
+               rep(cm), chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), np.asarray(ref), **SSD_TOL["float32"])
+
+
+def test_ssd_chunk_ref_is_the_pallas_kernel_body():
+    """The plain chunked version on the Pallas kernel's own operands
+    (flattened per batch-head, l = the in-chunk cumsum), against the
+    Pallas wrapper: the same arithmetic, so within 1e-5."""
+    B, S, H, P, N, chunk = 1, 128, 2, 16, 8, 32
+    x, dt, dA, bm, cm = _ssd_case(B, S, H, P, N, seed=5)
+    tdt, l = prepare(torch.from_numpy(dt), torch.from_numpy(dA), S, chunk)
+    flat = lambda a, d: torch.from_numpy(a).transpose(1, 2).reshape(B * H,
+                                                                     S, d)
+    col = lambda t: t.transpose(1, 2).reshape(B * H, S, 1)
+    y = ssd_chunk_ref(flat(x, P), col(tdt), col(l), flat(bm, N), flat(cm, N),
+                      chunk)
+    ref = jssd(*(jnp.asarray(a) for a in (x, dt, dA, bm, cm)), chunk=chunk)
+    np.testing.assert_allclose(
+        y.reshape(B, H, S, P).transpose(1, 2).numpy(), np.asarray(ref),
+        rtol=1e-5, atol=1e-5)
+    plain = ssd_plain(*(torch.from_numpy(a) for a in (x, dt, dA, bm, cm)),
+                      chunk=chunk)
+    torch.testing.assert_close(plain, y.reshape(B, H, S, P).transpose(1, 2))
+
+
+def test_model_chunked_ssd_matches_reference():
+    """The model's vectorised chunked SSD (a loop over chunks where the
+    reference runs an associative scan) against the reference's, and both
+    against the exact recurrence, as ``tests/test_kernels.py`` holds it."""
+    B, S, H, P, N, chunk, G = 2, 128, 4, 16, 8, 32, 2
+    x, dt, dA, bm, cm = _ssd_case(B, S, H, P, N, seed=9, G=G)
+    y = _ssd_chunked(*(torch.from_numpy(a) for a in (x, dt, dA, bm, cm)),
+                     chunk)
+    ref = j_ssd_chunked(*(jnp.asarray(a) for a in (x, dt, dA, bm, cm)),
+                        chunk)
+    assert y.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-4)
+    rep = lambda a: np.repeat(a, H // G, axis=2)
+    flat = lambda a, d: jnp.asarray(a).transpose(0, 2, 1, 3).reshape(B * H,
+                                                                      S, d)
+    col = lambda a: jnp.asarray(a).transpose(0, 2, 1).reshape(B * H, S, 1)
+    yr = jssd_ref(flat(x, P), col(dt), col(dA), flat(rep(bm), N),
+                  flat(rep(cm), N))
+    np.testing.assert_allclose(
+        y.numpy(), np.asarray(yr).reshape(B, H, S, P).transpose(0, 2, 1, 3),
+        **SSD_TOL["float32"])
+
+
+def test_ssd_checks_its_operands():
+    x, dt, dA, bm, cm = (torch.from_numpy(a)
+                         for a in _ssd_case(1, 32, 4, 16, 8, seed=1, G=3))
+    with pytest.raises(ValueError, match="shape"):
+        ssd(x, dt, dA, bm, cm, chunk=16)          # 3 groups do not divide 4
+    bm, cm = bm[:, :, :2].contiguous(), cm[:, :, :2].contiguous()
+    with pytest.raises(TypeError, match="dtype"):
+        ssd(x, dt, dA, bm.double(), cm, chunk=16)
+    with pytest.raises(TypeError, match="dtype"):
+        ssd(x, dt, dA, bm, cm, chunk=16, out_dtype=torch.float16)
