@@ -8,10 +8,10 @@ prints its wall seconds:
 
 1. environment: card name and power limit, torch and CUDA versions; TF32
    off for matmuls and convolutions;
-2. build: compile the seven kernel libraries (fused MLP, its backward,
-   window pack, masked attention, its backward, causal flash attention,
-   chunked SSD) with nvcc (sm_90a), one nvcc per source, started together;
-   then phase 14's parity checks;
+2. build: compile the eight kernel libraries (fused MLP, its backward,
+   window pack, masked attention, its backward, causal flash attention in
+   float32 and in bfloat16 (wgmma, TMA), chunked SSD) with nvcc (sm_90a),
+   one nvcc per source, started together; then phase 14's parity checks;
 3. fused-MLP parity: the kernel against its plain PyTorch version at every
    DFP layer shape, M in {1, 2, 4, 8, 16, 37, 64}, all four activations,
    float32 (rtol = atol = 2e-4) and bfloat16 (2e-2);
@@ -39,8 +39,10 @@ prints its wall seconds:
    activity only), and one epsilon-greedy collection rollout;
 9. fused-MLP backward parity: the dgrad and wgrad kernels against their
    plain versions at the 13 DFP layer shapes, M in {1, 16, 37, 64, 128},
-   all four activations, float32 (rtol 1e-3, atol 1e-4) and bfloat16
-   (2e-2);
+   and at the attention encoder's (K, N) in {(4, 64), (64, 64), (64, 128),
+   (128, 64)}, M in {8192, 8255, 8256} (the wgrad split along M), all four
+   activations, float32 (rtol 1e-3, atol 1e-4) and bfloat16 (2e-2); two
+   wgrad launches on the same inputs give bit-equal dW and db;
 10. training path: a second paper-width agent (paper defaults: batch 64,
    64 gradient steps per episode, lr 1e-4, clip 10) runs ``train_agent``
    over three full-scale S1 traces; exactly 13 forward, 10 dgrad and 13
@@ -77,7 +79,9 @@ prints its wall seconds:
 14. the LM zoo's kernels (right after the build): the causal flash
    attention B7 against its plain version over the reference tests'
    grid, every instantiated dh (16-256) and Sq != Sk, float32 (rtol =
-   atol = 2e-4) and bfloat16 (2e-2), causal and full; the chunked SSD B8
+   atol = 2e-4; the CUDA-core kernel) and bfloat16 (2e-2; the wgmma
+   kernel), causal and full, and in bfloat16 at zamba2-7b's shape (B = 1,
+   S = 4096, 32 heads of 112, causal); the chunked SSD B8
    against the exact recurrence and its plain chunked version over the
    reference tests' grid and the LM configs' (P, N, chunk), float32
    (1e-3) and bfloat16 (5e-2), and with float32 y against the plain
@@ -95,9 +99,12 @@ prints its wall seconds:
 16. LM widths: gemma-2b (dh 256, MQA; depth cut to 2 of 18 layers) and
    mamba2-1.3b (N 128; 4 of 48) at full width through the checks of 15.
 
-The line before the last is a JSON summary of the kernels; the last line
-is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
-exits non-zero before printing either.
+The line before the last is a JSON summary of the kernels, B7 as two
+entries: ``flash_attention`` (``flash_fwd_sm90.cu``, bfloat16; its launches
+are the bfloat16 prefill step's) and ``flash_attention_f32``
+(``flash_fwd.cu``; the float32 prefill steps'); the last line is
+``{"ok": true, "device": {...}}``.  Without a
+CUDA device the script exits non-zero before printing either.
 """
 from __future__ import annotations
 
@@ -139,6 +146,15 @@ WGRAD_REPLACES = "src/repro/kernels/fused_mlp/kernel.py:183"
 # bfloat16's.
 BWD_TOL = {torch.float32: (1e-3, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 BWD_PARITY_M = (1, 16, 37, 64, 128)
+# The attention encoder's token layers (K, N) at M up to 64 x 129, where the
+# wgrad splits M across blocks.
+ENCODER_WGRAD = [(4, 64), (64, 64), (64, 128), (128, 64)]
+ENCODER_M = (8192, 8255, 8256)
+# B3 and B7 before their redesign, quoted from PERF.md section 6 (NVIDIA
+# H100 80GB HBM3, 700 W) on a log line of their own, not measured here: B3
+# summed over the MLP train step's 13 layers, B7 bfloat16 at B = 2,
+# S = 4096, 32 heads of 112, causal.
+PRIOR_MS = {"fused_mlp_wgrad": 0.3603, "flash_attention": 9.7836}
 TRAIN_SEEDS = (1, 2, 3)          # full-scale S1 traces of the training path
 WP_SOURCE = "src/repro_torch/kernels/window_pack/csrc/window_pack.cu"
 WP_REPLACES = "src/repro/kernels/window_pack/kernel.py:37"
@@ -162,7 +178,11 @@ MHA_BWD_REPLACES = "src/repro/kernels/flash_attention/kernel.py:216"
 MHA_GRID = [(4, 129, 16), (32, 129, 16), (256, 129, 16), (8, 49, 8),
             (8, 257, 32), (8, 65, 64)]
 MHA_TOL = {"mha_fwd": 2e-5, "mha_bwd_dq": 1e-4, "mha_bwd_dkv": 1e-4}
-FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu"
+# B7's two kernels, by dtype (kernel.flash_plan): bfloat16 on wgmma, float32
+# on the CUDA cores; each has its entry in the kernels line.
+FLASH_SM90_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                     "flash_fwd_sm90.cu")
+FLASH_F32_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:281"
 SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd.cu"
 SSD_REPLACES = "src/repro/kernels/ssd/kernel.py:62"
@@ -173,7 +193,13 @@ FLASH_GRID = [(1, 128, 2, 2, 64), (2, 200, 4, 2, 64), (1, 384, 8, 1, 128),
               (2, 256, 6, 6, 32)] + [(1, 203, 4, 2, dh) for dh in
                                      (16, 32, 64, 112, 128, 192, 256)]
 FLASH_CROSS = [(2, 100, 260, 4, 4, 64), (2, 260, 100, 4, 2, 112)]
+FLASH_ZAMBA = (1, 4096, 4096, 32, 32, 112)      # bfloat16, causal
 FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# At FLASH_ZAMBA the rows past about 2,000 average to |o| near 0.03, so an
+# absolute limit of 2e-2 would let a wrong late key tile pass: there the
+# relative 2e-2 holds with an absolute 1e-3 (sound rows round off near
+# 1e-4).
+FLASH_ZAMBA_ATOL = 1e-3
 # B8: the reference tests' (B, S, H, P, N, chunk) with one group per head
 # (tests/test_kernels.py:244), then zamba2-7b's and mamba2-1.3b's (P, N,
 # chunk) at a ragged S with one group over 8 heads; tolerances against
@@ -247,7 +273,7 @@ def timed(name: str, fn, *args):
 
 
 def phase_build() -> None:
-    """The seven kernel libraries, one nvcc per source, started together."""
+    """The eight kernel libraries, one nvcc per source, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.flash_attention import kernel as fa
@@ -255,13 +281,14 @@ def phase_build() -> None:
     from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.kernels.window_pack import kernel as wp
     builds = (fm.build, fm.build_backward, wp.build, fa.build,
-              fa.build_backward, fa.build_flash, sk.build)
+              fa.build_backward, fa.build_flash, fa.build_flash_sm90,
+              sk.build)
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         futures = [pool.submit(b) for b in builds]
         infos = [f.result() for f in futures]
     for load in (fm._library, fm._backward_library, wp._library,
                  fa._library, fa._backward_library, fa._flash_library,
-                 sk._library):
+                 fa._flash_sm90_library, sk._library):
         load()
     for info in infos:
         log(f"[build] {info.library.name}: {info.seconds:.3f} s of nvcc")
@@ -1189,9 +1216,42 @@ def phase_backward_parity(agent) -> dict:
                     for kind, err in zip(("dgrad", "wgrad"), errs):
                         worst[kind, dtype] = max(worst[kind, dtype], err)
                     cases += 1
+    # The attention encoder's layers, whose wgrad splits M across blocks;
+    # two wgrad launches on the same inputs must give the same bits.
+    encoder = 0
+    for k, n in ENCODER_WGRAD:
+        w32 = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
+        for m in ENCODER_M:
+            x32 = torch.randn(m, k, generator=gen, device="cuda")
+            g32 = torch.randn(m, n, generator=gen, device="cuda")
+            pre = torch.randn(m, n, generator=gen, device="cuda")
+            for dtype in BWD_TOL:
+                x, g, w = x32.to(dtype), g32.to(dtype), w32.to(dtype)
+                for act in ACTIVATIONS:
+                    y = apply_activation(pre, act, 0.2).to(dtype)
+                    what = f"encoder K={k} N={n} M={m} {dtype} {act}"
+                    dw_db = fused_mlp_wgrad(x, g, y, activation=act)
+                    again = fused_mlp_wgrad(x, g, y, activation=act)
+                    if not all(torch.equal(a, b)
+                               for a, b in zip(dw_db, again)):
+                        raise AssertionError(f"[backward parity] wgrad "
+                                             f"{what}: two launches differ")
+                    dx = fused_mlp_dgrad(g, y, w, activation=act)
+                    errs = (bwd_check("dgrad", dx,
+                                      fused_mlp_dgrad_ref(g, y, w, act),
+                                      dtype, what),
+                            bwd_check("wgrad", dw_db,
+                                      fused_mlp_wgrad_ref(x, g, y, act),
+                                      dtype, what))
+                    for kind, err in zip(("dgrad", "wgrad"), errs):
+                        worst[kind, dtype] = max(worst[kind, dtype], err)
+                    cases += 1
+                    encoder += 1
     torch.cuda.synchronize()
     log(f"[backward parity] {cases} cases (13 layers x M {BWD_PARITY_M} x "
-        f"2 dtypes x 4 activations) pass for dgrad and wgrad; worst abs err "
+        f"2 dtypes x 4 activations, and {encoder} at the encoder's (K, N) "
+        f"{ENCODER_WGRAD} x M {ENCODER_M}, each wgrad launched twice with "
+        f"bit-equal dW and db) pass for dgrad and wgrad; worst abs err "
         f"float32 dgrad {worst['dgrad', torch.float32]!r}, wgrad "
         f"{worst['wgrad', torch.float32]!r} (rtol 1e-3, atol 1e-4); "
         f"bfloat16 dgrad {worst['dgrad', torch.bfloat16]!r}, wgrad "
@@ -1216,9 +1276,19 @@ def launch_counts() -> dict:
     return {k: w.launches for k, w in _counted().items()}
 
 
+def flash_kernel_launches() -> dict:
+    """B7's launches by kernel: ``flash_fwd`` (float32) and
+    ``flash_fwd_sm90`` (bfloat16)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    return dict(flash_attention.kernel_launches)
+
+
 def reset_launch_counts() -> None:
+    from repro_torch.kernels.flash_attention import flash_attention
     for w in _counted().values():
         w.launches = 0
+    flash_attention.kernel_launches = dict.fromkeys(
+        flash_attention.kernel_launches, 0)
 
 
 def times(per: dict, n: int) -> dict:
@@ -1387,7 +1457,7 @@ def phase_training_parity(agent, trace=None, per_step=MLP_STEP,
 BURST_GROUPS = (("forward (B1)", ("fused_mlp_fwd_kernel",
                                   "splitk_epilogue_kernel")),
                 ("dgrad (B2)", ("dgrad_kernel", "splitk_sum_kernel")),
-                ("wgrad (B3)", ("wgrad_kernel",)),
+                ("wgrad (B3)", ("wgrad_",)),
                 ("attention (B5)", ("mha_fwd_kernel",)),
                 ("attention dq, dkv (B6)", ("mha_bwd_dq_kernel",
                                             "mha_bwd_dkv_kernel")),
@@ -1731,18 +1801,21 @@ def flash_inputs(b, sq, sk, h, kv, dh, dtype, gen) -> tuple:
                                (b, sk, kv, dh)))
 
 
-def within(got, want, tol: float) -> tuple:
-    """(ok, max abs err): |got - want| <= tol + tol * |want| everywhere,
-    the reference tests' ``assert_allclose(rtol=tol, atol=tol)``."""
+def within(got, want, tol: float, atol: float = None) -> tuple:
+    """(ok, max abs err): |got - want| <= atol + tol * |want| everywhere,
+    the reference tests' ``assert_allclose(rtol=tol, atol=tol)`` unless
+    ``atol`` is given."""
     err = (got.float() - want.float()).abs()
-    return bool((err <= tol + tol * want.float().abs()).all()), \
+    atol = tol if atol is None else atol
+    return bool((err <= atol + tol * want.float().abs()).all()), \
         float(err.max())
 
 
-def phase_flash_parity() -> float:
+def phase_flash_parity() -> dict:
     """B7 against its plain version over the reference tests' grid, every
     instantiated dh and unequal lengths, float32 and bfloat16, causal and
-    full; returns the worst float32 absolute error."""
+    full, and in bfloat16 at zamba2-7b's shape; returns the worst absolute
+    error by dtype."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
     gen = torch.Generator(device="cuda").manual_seed(16)
@@ -1761,11 +1834,24 @@ def phase_flash_parity() -> float:
                         f"[flash parity] B={b} Sq={sq} Sk={sk} H={h} KV={kv} "
                         f"dh={dh} {dtype} causal={causal}: max abs err {err}")
                 worst[dtype] = max(worst[dtype], err)
+    # bfloat16 (the wgmma kernel) at zamba2-7b's shape.
+    b, sq, sk, h, kv, dh = FLASH_ZAMBA
+    q, k, v = flash_inputs(b, sq, sk, h, kv, dh, torch.bfloat16, gen)
+    ok, zamba = within(flash_attention(q, k, v, causal=True),
+                       flash_attention_ref(q, k, v, True),
+                       FLASH_TOL[torch.bfloat16], FLASH_ZAMBA_ATOL)
+    if not ok:
+        raise AssertionError(f"[flash parity] bfloat16 at {FLASH_ZAMBA}: max "
+                             f"abs err {zamba}")
+    worst[torch.bfloat16] = max(worst[torch.bfloat16], zamba)
+    del q, k, v
     torch.cuda.synchronize()
-    log(f"[flash parity] {len(cases) * 4} cases pass; worst abs err float32 "
-        f"{worst[torch.float32]!r} (rtol = atol = 2e-4), bfloat16 "
-        f"{worst[torch.bfloat16]!r} (2e-2)")
-    return worst[torch.float32]
+    log(f"[flash parity] {len(cases) * 4 + 1} cases pass; worst abs err "
+        f"float32 {worst[torch.float32]!r} (rtol = atol = 2e-4), bfloat16 "
+        f"{worst[torch.bfloat16]!r} (2e-2; at (B, Sq, Sk, H, KV, dh) = "
+        f"{FLASH_ZAMBA}, causal, rtol 2e-2 atol {FLASH_ZAMBA_ATOL}: "
+        f"{zamba!r})")
+    return worst
 
 
 def ssd_inputs(b, s, h, p, n, g, dtype, gen) -> tuple:
@@ -1936,20 +2022,23 @@ def check_recorded(calls: dict, tag: str) -> dict:
 
 
 def prefill_parity(cfg, params, batch, expect: dict, tag: str) -> tuple:
-    """One prefill step on each backend, the kernel one with the launch
-    counts set to 0 just before and read just after; the last-token logits
-    compared.  Returns (counts, recorded first calls, max abs err)."""
+    """One float32 prefill step on each backend, the kernel one with the
+    launch counts set to 0 just before and read just after (every B7 launch
+    on ``flash_fwd``); the last-token logits compared.  Returns (counts,
+    recorded first calls, max abs err)."""
     from repro_torch.launch import make_prefill_step
     reset_launch_counts()
     with FirstCalls() as calls:
         got = make_prefill_step(cfg, "kernel")(params, batch)
         torch.cuda.synchronize()
-    counts = launch_counts()
+    counts, by_kernel = launch_counts(), flash_kernel_launches()
     want = make_prefill_step(cfg, "torch")(params, batch)
     torch.cuda.synchronize()
-    if counts != times(expect, 1):
-        raise AssertionError(f"[{tag}] launches per forward {counts}, "
-                             f"expected {times(expect, 1)}")
+    if counts != times(expect, 1) or by_kernel != {
+            "flash_fwd": counts["flash_attention"], "flash_fwd_sm90": 0}:
+        raise AssertionError(f"[{tag}] launches per forward {counts}, B7 by "
+                             f"kernel {by_kernel}; expected "
+                             f"{times(expect, 1)}, all B7 on flash_fwd")
     b = got.shape[0]
     if got.shape != want.shape or not torch.isfinite(got).all():
         raise AssertionError(f"[{tag}] logits {tuple(got.shape)}, finite "
@@ -1976,7 +2065,8 @@ def free_cuda() -> None:
     torch.cuda.empty_cache()
 
 
-LM_GROUPS = (("B7 flash attention", ("flash_fwd_kernel",)),
+LM_GROUPS = (("B7 flash attention", ("flash_fwd_kernel",
+                                     "flash_fwd_sm90_kernel")),
              ("B8 ssd", ("ssd_kernel",)),
              ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
              ("elementwise", ("elementwise", "vectorized", "unrolled")),
@@ -2014,7 +2104,8 @@ def phase_lm_prefill() -> dict:
         f"{cfg.d_model // cfg.hybrid.shared_n_heads}), vocab "
         f"{cfg.vocab_size}: {n_params} parameters ({4 * n_params / 1e9:.2f} "
         f"GB float32), made in {time.perf_counter() - t0:.1f} s")
-    out = {"launches": {"flash_attention": 0, "ssd": 0}, "err": {}}
+    out = {"launches": {"flash_attention": 0, "ssd": 0}, "err": {},
+           "f32": {}}
     for i, batch in enumerate(batches):
         counts, calls, err = prefill_parity(cfg, params, batch, LM_PREFILL,
                                             "lm prefill")
@@ -2027,11 +2118,17 @@ def phase_lm_prefill() -> dict:
             flush = torch.empty(64 * 2**20, dtype=torch.float32,
                                 device="cuda")
             for name, c in lm_kernel_closures(calls).items():
-                t_k = device_ms(c["run"], flush, reps=5)
+                t = {k: device_ms(c[k], flush, reps=5) if c[k] else None
+                     for k in ("run", "ref", "lib")}
+                out["f32"][name] = {
+                    "ms": t["run"], "plain_ms": t["ref"],
+                    "library_ms": t["lib"], "bound_ms": c["bound_ms"],
+                    "bound_by": c["bound_by"]}
+                lib = "none" if t["lib"] is None else f"{t['lib']:.4f} ms"
                 log(f"[lm prefill] {name} float32 ({c['shape']}): kernel "
-                    f"{t_k:.4f} ms ({c['flops'] / t_k / 1e9:.2f} TFLOP/s "
-                    f"of {c['flops'] / 1e9:.1f} GFLOP)  plain "
-                    f"{device_ms(c['ref'], flush, reps=5):.4f} ms  bound "
+                    f"{t['run']:.4f} ms ({c['flops'] / t['run'] / 1e9:.2f} "
+                    f"TFLOP/s of {c['flops'] / 1e9:.1f} GFLOP)  plain "
+                    f"{t['ref']:.4f} ms  library {lib}  bound "
                     f"{c['bound_ms']:.4f} ms ({c['bound_by']}, 67 TFLOP/s "
                     f"float32)")
         del calls
@@ -2043,11 +2140,23 @@ def phase_lm_prefill() -> dict:
                          device="cuda", dtype=torch.bfloat16)
     batch = batches[0]
     step = make_prefill_step(cfg, "kernel")
+    reset_launch_counts()
     with FirstCalls() as calls:
         logits = step(params, batch)          # warm-up, and the operands
     torch.cuda.synchronize()
+    counts, by_kernel = launch_counts(), flash_kernel_launches()
     if not torch.isfinite(logits).all():
         raise AssertionError("[lm prefill] bfloat16 logits not finite")
+    want = {"flash_fwd": 0, "flash_fwd_sm90": LM_PREFILL["flash_attention"]}
+    if counts != times(LM_PREFILL, 1) or by_kernel != want:
+        raise AssertionError(f"[lm prefill] bfloat16 step: launches per "
+                             f"forward {counts}, B7 by kernel {by_kernel}; "
+                             f"expected {times(LM_PREFILL, 1)}, {want}")
+    out["bf16_launches"] = {"flash_attention": by_kernel["flash_fwd_sm90"],
+                            "ssd": counts["ssd"]}
+    out["bf16_err"] = {}
+    log(f"[lm prefill] bfloat16 step, B=2 S={LM_PREFILL_S[0]}: launches per "
+        f"forward {counts}; B7 by kernel {by_kernel}")
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -2090,6 +2199,7 @@ def phase_lm_prefill() -> dict:
         if not ok:
             raise AssertionError(f"[lm prefill] {name} bfloat16 on the "
                                  f"path's operands: max abs err {err}")
+        out["bf16_err"][name] = err
         t = {k: device_ms(c[k], flush, reps=5) if c[k] else None
              for k in ("run", "ref", "lib")}
         out[name] = {"ms": t["run"], "plain_ms": t["ref"],
@@ -2148,17 +2258,35 @@ def main() -> int:
     kernels = scheduling_paths()
     lm = timed("lm prefill", phase_lm_prefill)
     widths = timed("lm widths", phase_lm_widths)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels += [{
-        "name": name, "route": "cuda", "source": source,
-        "replaces": replaces,
-        "launches": lm["launches"][name] + widths["launches"][name],
-        "max_abs_err": max(worst, lm["err"][name],
-                           widths["err"].get(name, 0.0)),
-        **{k: lm[name][k] for k in ("ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms")},
-    } for name, source, replaces, worst in (
-        ("flash_attention", FLASH_SOURCE, FLASH_REPLACES, flash_worst),
-        ("ssd", SSD_SOURCE, SSD_REPLACES, ssd_worst))]
+        # B7 in bfloat16: the bfloat16 prefill step's launches and times.
+        "name": "flash_attention", "route": "cuda",
+        "source": FLASH_SM90_SOURCE, "replaces": FLASH_REPLACES,
+        "launches": lm["bf16_launches"]["flash_attention"],
+        "max_abs_err": max(flash_worst[torch.bfloat16],
+                           lm["bf16_err"]["flash_attention"]),
+        **{k: lm["flash_attention"][k] for k in keys},
+    }, {
+        # B7 in float32: the float32 prefill steps' launches and times.
+        "name": "flash_attention_f32", "route": "cuda",
+        "source": FLASH_F32_SOURCE, "replaces": FLASH_REPLACES,
+        "launches": (lm["launches"]["flash_attention"]
+                     + widths["launches"]["flash_attention"]),
+        "max_abs_err": max(flash_worst[torch.float32],
+                           lm["err"]["flash_attention"],
+                           widths["err"].get("flash_attention", 0.0)),
+        **{k: lm["f32"]["flash_attention"][k] for k in keys},
+    }, {
+        "name": "ssd", "route": "cuda", "source": SSD_SOURCE,
+        "replaces": SSD_REPLACES,
+        "launches": lm["launches"]["ssd"] + widths["launches"]["ssd"],
+        "max_abs_err": max(ssd_worst, lm["err"]["ssd"],
+                           widths["err"].get("ssd", 0.0)),
+        **{k: lm["ssd"][k] for k in keys},
+    }]
+    log(f"[prior] quoted from PERF.md section 6, not measured in this run: "
+        f"time before the redesign {PRIOR_MS} (ms)")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -57,14 +57,17 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def lm_params_from_jax(tree, cfg, *, device="cpu"):
+def lm_params_from_jax(tree, cfg, *, device=None):
     """The JAX package's LM parameter tree (``models.transformer.
-    init_params``) for ``cfg`` as this package's ``models.LM``, same dtype.
+    init_params``) for ``cfg`` as this package's ``models.LM``, same dtype,
+    on ``device`` (``None`` means the card, as ``init_params`` resolves it).
     The reference stacks the layers along a leading L dim; here leaf
     ``stack.<name>`` of shape (L, ...) becomes ``stack.<i>.<name>`` for
     i < L.  ``shared_blocks`` keep their list order; weights stay
     (in, out)."""
+    from .core.agent import resolve_device
     from .models.transformer import LM
+    device = resolve_device(device)
     flat: Dict[str, np.ndarray] = {}
     _flatten(tree, "", flat)
     state: Dict[str, torch.Tensor] = {}

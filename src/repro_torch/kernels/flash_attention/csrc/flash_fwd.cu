@@ -1,30 +1,29 @@
-// Causal (or full) flash attention forward for Hopper (sm_90a): B7,
-// `flash_attention`.
+// Causal (or full) flash attention forward for Hopper (sm_90a) in float32:
+// B7, `flash_attention`, for float32 inputs (bfloat16 inputs go to the
+// wgmma kernel of flash_fwd_sm90.cu).
 //
 // Replaces the TPU kernel `flash_attention_kernel` (`_flash_kernel`) in
 // src/repro/kernels/flash_attention/kernel.py:281.  Inputs in the models'
-// layout, contiguous: q (B, Sq, H, dh), k and v (B, Sk, KV, dh), float32 or
-// bfloat16 (all three alike); query head h reads KV head h / (H / KV), the
-// order of the reference's `jnp.repeat` and `_group_heads`, with no copy.
-// Output o (B, Sq, H, dh) in the inputs' dtype:
+// layout, contiguous: q (B, Sq, H, dh), k and v (B, Sk, KV, dh), float32;
+// query head h reads KV head h / (H / KV), the order of the reference's
+// `jnp.repeat` and `_group_heads`, with no copy.  Output o (B, Sq, H, dh):
 //
 //   s_ij = (q_i . k_j) * dh^-0.5 on keys j < Sk, and j <= i when causal
 //          (top-left aligned when Sq != Sk, as in the reference);
-//   o_i  = sum_j bf(exp(s_ij - m_i)) v_j / max(l_i, 1e-30),
+//   o_i  = sum_j exp(s_ij - m_i) v_j / max(l_i, 1e-30),
 //          l_i = sum_j exp(s_ij - m_i),
 //
-// an online softmax over tiles of 64 keys in float32, where bf() rounds p
-// to v's dtype before p . v (the reference casts p the same way) and the
-// sums are float32.  Masked scores are -1e30, as in the reference.
+// an online softmax over tiles of 64 keys, all in float32.  Masked scores
+// are -1e30, as in the reference.
 //
 // What bounds it: the FMA rate.  At the LM prefill's shapes (zamba2-7b,
 // B = 2, S = 4096, 32 heads of 112) one causal call does about 2 x 2 x
-// 64 x 4096^2 / 2 x 112 = 240 GFLOP and moves 0.47 GB (float32): 3.6 ms
-// at 67 TFLOP/s float32 against 0.14 ms of bytes.  The TPU design (128 x
-// 128 MXU tiles, padded sequences, m / l / acc carried in VMEM across a
-// sequential key grid) does not carry over.  This first version runs on
-// the CUDA cores in float32, so float32 inputs keep full float32 products
-// (no TF32), and bfloat16 inputs are widened on load:
+// 64 x 4096^2 / 2 x 112 = 240 GFLOP and moves 0.47 GB: 3.6 ms at 67
+// TFLOP/s float32 against 0.14 ms of bytes.  The TPU design (128 x 128 MXU
+// tiles, padded sequences, m / l / acc carried in VMEM across a sequential
+// key grid) does not carry over.  It runs on the CUDA cores, so float32
+// inputs keep full float32 products (no TF32: the LM's float32 parity
+// rests on them):
 //
 //  * one block of 256 threads per (b, h, tile of 64 query rows); the
 //    heaviest causal tiles (the last query rows) are launched first;
@@ -41,7 +40,6 @@
 // Plain C interface for ctypes; the wrapper (kernel.py) allocates the
 // output and raises on a non-zero return.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -54,20 +52,6 @@ constexpr int kPad = 4;            // row padding of the transposed tiles
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void from_f(float x, float* out) { *out = x; }
-__device__ __forceinline__ void from_f(float x, __nv_bfloat16* out) {
-  *out = __float2bfloat16(x);
-}
-// p as the reference multiplies it into v: rounded to v's dtype.
-__device__ __forceinline__ float round_as(float p, float) { return p; }
-__device__ __forceinline__ float round_as(float p, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(p));
-}
-
 template <int DH>
 constexpr int smem_bytes() {
   return static_cast<int>(sizeof(float)) *
@@ -75,11 +59,11 @@ constexpr int smem_bytes() {
           kBQ * (kBK + kPad));
 }
 
-template <int DH, typename T>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
-                 int heads, int kv_heads, int causal, float scale) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int sq,
+                 int sk, int heads, int kv_heads, int causal, float scale) {
   static_assert(DH % 16 == 0, "dh must be a multiple of 16");
   constexpr int kCols = DH / 16;   // output columns per thread
   extern __shared__ float smem[];
@@ -99,14 +83,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = h / (heads / kv_heads);
   const int64_t q_row = static_cast<int64_t>(heads) * DH;     // q, o
   const int64_t k_row = static_cast<int64_t>(kv_heads) * DH;  // k, v
-  const T* qb = q + static_cast<int64_t>(b) * sq * q_row + h * DH;
-  const T* kb = k + static_cast<int64_t>(b) * sk * k_row + kvh * DH;
-  const T* vb = v + static_cast<int64_t>(b) * sk * k_row + kvh * DH;
+  const float* qb = q + static_cast<int64_t>(b) * sq * q_row + h * DH;
+  const float* kb = k + static_cast<int64_t>(b) * sk * k_row + kvh * DH;
+  const float* vb = v + static_cast<int64_t>(b) * sk * k_row + kvh * DH;
 
   for (int e = tid; e < kBQ * DH; e += kThreads) {
     const int r = e / DH, d = e % DH;
     const int qi = q_start + r;
-    qt[d * (kBQ + kPad) + r] = qi < sq ? to_f(qb[qi * q_row + d]) : 0.f;
+    qt[d * (kBQ + kPad) + r] = qi < sq ? qb[qi * q_row + d] : 0.f;
   }
 
   // Keys this tile of queries can see: all of them, or up to its last row.
@@ -126,8 +110,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = e / DH, d = e % DH;
       const int kj = k0 + c;
       const bool in = kj < sk;
-      kt[d * (kBK + kPad) + c] = in ? to_f(kb[kj * k_row + d]) : 0.f;
-      vs[c * DH + d] = in ? to_f(vb[kj * k_row + d]) : 0.f;
+      kt[d * (kBK + kPad) + c] = in ? kb[kj * k_row + d] : 0.f;
+      vs[c * DH + d] = in ? vb[kj * k_row + d] : 0.f;
     }
     __syncthreads();
 
@@ -174,9 +158,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float pr[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        l[i] += p;
-        pr[j] = round_as(p, T());
+        pr[j] = expf(s[i][j] - m_new);
+        l[i] += pr[j];
       }
       *reinterpret_cast<float4*>(ps + (r0 + i) * (kBK + kPad) + c0) =
           make_float4(pr[0], pr[1], pr[2], pr[3]);
@@ -217,76 +200,60 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q_start + r0 + i;
     if (qi < sq) {
       const float inv = 1.f / fmaxf(li, 1e-30f);
-      T* orow = o + static_cast<int64_t>(b) * sq * q_row + qi * q_row +
+      float* orow = o + static_cast<int64_t>(b) * sq * q_row + qi * q_row +
                 h * DH + tc;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) from_f(acc[i][j] * inv, orow + 16 * j);
+      for (int j = 0; j < kCols; ++j) orow[16 * j] = acc[i][j] * inv;
     }
   }
 }
 
-template <int DH, typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+template <int DH>
+cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    int b, int sq, int sk, int heads, int kv_heads,
                    int causal, float scale, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<DH>();
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<DH, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         bytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid((sq + kBQ - 1) / kBQ, b * heads);
-  flash_fwd_kernel<DH, T><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, heads, kv_heads,
-      causal, scale);
+  flash_fwd_kernel<DH><<<grid, kThreads, bytes, stream>>>(
+      q, k, v, o, sq, sk, heads, kv_heads, causal, scale);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(int dh, const void* q, const void* k, const void* v,
-                     void* o, int b, int sq, int sk, int heads, int kv_heads,
-                     int causal, float scale, cudaStream_t s) {
-  switch (dh) {
-    case 16: return launch<16, T>(q, k, v, o, b, sq, sk, heads, kv_heads,
-                                  causal, scale, s);
-    case 32: return launch<32, T>(q, k, v, o, b, sq, sk, heads, kv_heads,
-                                  causal, scale, s);
-    case 64: return launch<64, T>(q, k, v, o, b, sq, sk, heads, kv_heads,
-                                  causal, scale, s);
-    case 112: return launch<112, T>(q, k, v, o, b, sq, sk, heads, kv_heads,
-                                    causal, scale, s);
-    case 128: return launch<128, T>(q, k, v, o, b, sq, sk, heads, kv_heads,
-                                    causal, scale, s);
-    case 192: return launch<192, T>(q, k, v, o, b, sq, sk, heads, kv_heads,
-                                    causal, scale, s);
-    case 256: return launch<256, T>(q, k, v, o, b, sq, sk, heads, kv_heads,
-                                    causal, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16.  `scale` is dh^-0.5 as the wrapper rounds
-// it to float32.  Returns cudaGetLastError() after the launch (0 on
-// success), or cudaErrorInvalidValue for a head dim or dtype without an
-// instantiation.
+// float32 q, k, v, o.  `scale` is dh^-0.5 as the wrapper rounds it to
+// float32.  Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for a head dim without an instantiation.
 int mrsch_flash_fwd(const void* q, const void* k, const void* v, void* o,
                     int b, int sq, int sk, int heads, int kv_heads, int dh,
-                    int causal, int dtype, float scale, void* stream) {
+                    int causal, float scale, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(dh, q, k, v, o, b, sq, sk, heads, kv_heads,
-                           causal, scale, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(dh, q, k, v, o, b, sq, sk, heads,
-                                   kv_heads, causal, scale, s);
+  auto qf = static_cast<const float*>(q);
+  auto kf = static_cast<const float*>(k);
+  auto vf = static_cast<const float*>(v);
+  auto of = static_cast<float*>(o);
+#define MRSCH_FLASH_CASE(DH)                                                \
+  if (dh == DH)                                                             \
+    return static_cast<int>(launch<DH>(qf, kf, vf, of, b, sq, sk, heads,    \
+                                       kv_heads, causal, scale, s));
+  MRSCH_FLASH_CASE(16)
+  MRSCH_FLASH_CASE(32)
+  MRSCH_FLASH_CASE(64)
+  MRSCH_FLASH_CASE(112)
+  MRSCH_FLASH_CASE(128)
+  MRSCH_FLASH_CASE(192)
+  MRSCH_FLASH_CASE(256)
+#undef MRSCH_FLASH_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -33,8 +33,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     reads KV head h // (H // KV), with no repeat.  With ``causal`` query i
     sees keys j <= i, top-left aligned when Sq != Sk.  float32 or bfloat16,
     contiguous; no padding (the JAX wrapper pads to the TPU block).  On the
-    card dh must be one of ``kernel.FLASH_HEAD_DIMS``; a CPU tensor takes
-    the plain version."""
+    card dh must be one of ``kernel.FLASH_HEAD_DIMS``, and the dtype picks
+    one of two kernels (``kernel.flash_plan``): float32 runs on the CUDA
+    cores, bfloat16 on ``wgmma``; both count in ``launches``, and each in
+    ``kernel_launches`` under its kernel's name.  A CPU tensor
+    takes the plain version."""
     named = {"q": q, "k": k, "v": v}
     shapes = {n: tuple(t.shape) for n, t in named.items()}
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -49,7 +52,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in kernel.FLASH_DTYPES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: operands must share a dtype of "
-                        f"{tuple(kernel.FLASH_DTYPES)}, got "
+                        f"{kernel.FLASH_DTYPES}, got "
                         f"{ {n: t.dtype for n, t in named.items()} }")
     if not all(t.is_contiguous() for t in named.values()):
         raise ValueError("flash_attention: operands must be contiguous")
@@ -60,12 +63,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_ref(q, k, v, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    if dh not in kernel.FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {dh} has no kernel; "
-                         f"expected one of {kernel.FLASH_HEAD_DIMS}")
     with torch.profiler.record_function("mrsch.kernel.flash_attention"):
         out = kernel.flash_forward(q, k, v, causal)
     flash_attention.launches += 1
+    flash_attention.kernel_launches[kernel.flash_plan(q.dtype, dh)[0]] += 1
     return out
 
 
@@ -181,9 +182,11 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 #: Kernel launches since the count was last set to 0 (CPU calls excluded):
-#: ``flash_attention.launches`` counts B7, ``mha.launches`` B5, the other
+#: ``flash_attention.launches`` counts B7 (``kernel_launches`` splits it by
+#: the kernel ``kernel.flash_plan`` chose), ``mha.launches`` B5, the other
 #: two B6's kernels.
 flash_attention.launches = 0
+flash_attention.kernel_launches = {"flash_fwd": 0, "flash_fwd_sm90": 0}
 mha.launches = 0
 mha_bwd_dq.launches = 0
 mha_bwd_dkv.launches = 0

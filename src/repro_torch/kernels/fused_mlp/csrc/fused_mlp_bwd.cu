@@ -14,23 +14,26 @@
 // device memory (the property the TPU kernels were built for; the JAX
 // package leaves db to XLA, here it folds into the wgrad, whose blocks of
 // the first K tile already hold the scaled g).  Nothing is padded: ragged
-// M, K and N edges are masked in the kernels.  Both kernels stage their
-// operands in shared memory one step at a time and load the next step's
-// operands into registers while the current step is computed, so a step's
-// global loads are all in flight together and their latency overlaps the
-// arithmetic.
+// M, K and N edges are masked in the kernels.
 //
-// What bounds them, in DFP training (M = 64 rows per minibatch):
+// What bounds them:
 //
-//  * wgrad is bound by operations: 2MKN FLOP against a contraction only M
-//    long, with a large output (45.6 M elements, 182.6 MB float32, for the
-//    11410 x 4000 layer: 87 us of float32 FMA at 67 TFLOP/s, 54 us of
-//    writes).  Design: a register-tiled product.  Each block owns a 128 x
-//    128 tile of dW; x[:, k-tile] and the act'-scaled g[:, n-tile] are staged
-//    in shared memory 16 rows of M at a time; each thread accumulates an
-//    8 x 8 micro-tile in registers (four 16-byte shared loads feed 64 FMAs)
-//    and writes its part of dW exactly once, four columns per store; db is
-//    summed over M in a fixed order by the blocks of the first K tile.
+//  * wgrad, in DFP training (M = 64 rows per minibatch), is bound on the
+//    widest layer by operations in float32 and by its writes in bfloat16:
+//    2MKN FLOP against a contraction only M long, with a large output
+//    (45.6 M elements, 182.6 MB float32, for the 11410 x 4000 layer: 87 us
+//    of float32 FMA at 67 TFLOP/s, 54.5 us of writes at 3.35 TB/s).  Its
+//    other layers, and the attention encoder's
+//    (K, N <= 128 and M up to 64 x 129 = 8,256: the whole layer one or two
+//    tiles, so one block would walk every row of M), are bound by latency.
+//    Design: the tile is chosen per layer (128, 64 or 32 square) so that
+//    the blocks spread over the SMs; M, the contraction, is split across
+//    blocks (grid.z) when the tiles alone cannot fill the card, never into
+//    slices shorter than 64 rows, and the splits' float32 partial sums of
+//    dW and db are added in a fixed order by a second small kernel, so the
+//    results repeat bit for bit.  Each block stages x, g and y in shared
+//    memory and multiplies: float32 on the CUDA cores, bfloat16 on the
+//    tensor cores (below).
 //  * dgrad is bound by operations at M = 64 (about 7.6 us for the 4000 x
 //    1000 layer) and by W's bytes at small M.  Each dx[:, k] contracts along
 //    the contiguous row k of W, the transpose of the forward's access.
@@ -38,27 +41,26 @@
 //    64 rows of W once (per 64 rows of M), whole 32-byte sectors of 4 rows
 //    per warp load, transposing them into shared memory; the scaled g is staged
 //    in N-chunks of 32 (the whole (64, 4000) scaled g, 1 MB, does not fit).
-//    Each thread accumulates a 4 x 4 micro-tile.  When the K tiles alone
-//    cannot fill the card (K = 4000 gives 63 tiles for 132 SMs), N is split
-//    across blocks (grid.y); the float32 partial sums are added in split
-//    order by a second small kernel, so results do not depend on scheduling.
+//    Each thread accumulates a 4 x 4 micro-tile and loads the next step's
+//    operands into registers while the current step is computed.  When the
+//    K tiles alone cannot fill the card (K = 4000 gives 63 tiles for 132
+//    SMs), N is split across blocks (grid.y); the float32 partial sums are
+//    added in split order by a second small kernel, so results do not
+//    depend on scheduling.
 //
-// Plain C interface for ctypes; the wrapper (kernel.py) picks the split,
-// allocates dx, dW, db and the partial buffer, and raises on a non-zero
+// Plain C interface for ctypes; the wrapper (kernel.py) picks the splits,
+// allocates dx, dW, db and the partial buffers, and raises on a non-zero
 // return.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
-
-// wgrad geometry: 16 x 16 threads, 8 x 8 outputs each.
-constexpr int kWgTileK = 128;
-constexpr int kWgTileN = 128;
-constexpr int kWgStepM = 16;
 
 // dgrad geometry: 16 x 16 threads, 4 x 4 outputs each.
 constexpr int kDgTileM = 64;
@@ -142,31 +144,559 @@ struct Store4<T, false> {
 };
 
 // ------------------------------------------------------------------ wgrad
+// grid = (ceil(N / T), ceil(K / T), splits) for a square tile T of 128, 64
+// or 32 (kernel.py's wgrad_tile: the largest of which the layer has a wave
+// of tiles; else 64 where M is split, 32 where it is not).  Block (nt, kt,
+// s) owns the T x T tile (k0, n0) of dW over the rows [s * chunk, min(M,
+// (s + 1) * chunk)) of M; 256 threads.
+//
+// Each 32-row step of M goes through a two-stage ring in shared memory: x,
+// g and y land there by cp.async (the widest chunk of 16, 8 or 4 bytes the
+// rows are aligned to; zero past M, K or N) while the step before is
+// multiplied; a linear layer (act' = 1) does not load y.  The blocks of
+// the first K tile also sum s = g * act'(y) over M for db, in a fixed
+// order.  The product of a step:
+//  * float32, on the CUDA cores: a pass replaces the staged g by s, then
+//    thread (tx, ty) = (tid % 16, tid / 16) accumulates a (T / 16) x (T /
+//    16) micro-tile of dW in float32 FMAs, reading x and s along M in
+//    vectors (rows ty * T / 16.., columns tx * T / 16..); at T = 128 the
+//    same 8 x 8 micro-tile is computed by wgrad_fma128_kernel below, which
+//    stages through registers.  3xTF32 on mma.sync, tried first, was slower
+//    at every shape (mma.sync runs TF32 at a fraction of wgmma's rate, and
+//    the three products triple it) and, its accumulation truncating, missed
+//    the 1e-4 tolerance over long M;
+//  * bfloat16, on the tensor cores (mma.sync m16n8k16): the 8 warps form a
+//    2 x 4 grid, warp w owning a (T / 2) x (T / 4) sub-tile of 16 x 8
+//    tiles, and skip the tiles that lie wholly past K or N.  act' is
+//    applied as the fragments of g are read (ldmatrix.trans: the
+//    contraction M is the outer dimension of both staged operands), s
+//    split into bfloat16 s_hi + s_lo, so it keeps about 16 mantissa bits;
+//    x is exact, and each tile adds x s_lo + x s_hi.
+// With one split the block writes its dW tile (and db) in the output dtype;
+// with more it writes float32 partial sums, which wgrad_sum_kernel adds in
+// a fixed order, so the results repeat bit for bit.
+constexpr int kWgStepM = 32;             // rows of M a ring stage holds
+constexpr int kWgStages = 2;
+
+template <int kTile>
+struct WgGeom {
+  static constexpr int kPitch = kTile + 8;               // spreads the banks
+  static constexpr int kArray = kWgStepM * kPitch;       // one staged array
+  static constexpr int kSmem(int elem) { return kWgStages * 3 * kArray * elem; }
+  // float32: a (kPer x kPer) micro-tile per thread, in kGroups vectors of kV
+  // whose starts are kSpan apart.
+  static constexpr int kPer = kTile / 16;
+  static constexpr int kV = kPer < 4 ? kPer : 4;
+  static constexpr int kGroups = kPer / kV;
+  static constexpr int kSpan = kTile / kGroups;
+  static constexpr int kPassRows = kThreads / kTile;     // rows a pass sweep
+  // bfloat16: the 2 x 4 warp grid's sub-tiles of 16 x 8 tensor-core tiles.
+  static constexpr int kWarpK = kTile / 2;
+  static constexpr int kWarpN = kTile / 4;
+  static constexpr int kI = kWarpK / 16;
+  static constexpr int kJ = kWarpN / 8;
+  static_assert(kWarpK % 16 == 0 && kWarpN % 8 == 0, "tile");
+};
+
+// cp.async of kBytes (4, 8 or 16); src_bytes = 0 fills the chunk with zeros.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
+                                         int src_bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(gmem), "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+                 "l"(gmem), "n"(kBytes), "r"(src_bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Two values (low half first) as hi + lo, both bfloat16 pairs.
+__device__ __forceinline__ void split_bf16x2(float v0, float v1, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(
+      v0 - __low2float(h), v1 - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* smem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2],
+                                              const void* smem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(s)
+      : "memory");
+}
+
+// Stage rows [row0, row0 + 32) of a (rows, ld) operand's columns [c0, c0 +
+// kTile), zero past m_end or ld, in chunks of `bytes` (16, 8 or 4: ld and
+// the operand are aligned to it, so a chunk lies wholly inside or outside
+// the row) by cp.async; bytes = 0 stages element by element.
+template <typename T, int kTile>
+__device__ __forceinline__ void wgrad_stage(T* dst, const T* __restrict__ src,
+                                            int ld, int c0, int row0,
+                                            int m_end, int bytes, int tid) {
+  constexpr int kP = WgGeom<kTile>::kPitch;
+  if (bytes == 0) {
+    const T zero = from_f32<T>(0.f);
+    for (int e = tid; e < kWgStepM * kTile; e += kThreads) {
+      const int r = e / kTile, c = e % kTile;
+      const int m = row0 + r;
+      dst[r * kP + c] = m < m_end && c0 + c < ld
+                            ? src[static_cast<long long>(m) * ld + c0 + c]
+                            : zero;
+    }
+    return;
+  }
+  const int per = bytes / static_cast<int>(sizeof(T));  // elements a chunk
+  const int shift = __ffs(kTile / per) - 1;              // log2 chunks a row
+  for (int q = tid; q < (kWgStepM << shift); q += kThreads) {
+    const int r = q >> shift, c = (q & ((1 << shift) - 1)) * per;
+    const int m = row0 + r;
+    const bool live = m < m_end && c0 + c < ld;
+    const T* from = live ? src + static_cast<long long>(m) * ld + c0 + c : src;
+    const int n = live ? bytes : 0;
+    T* to = dst + r * kP + c;
+    if (bytes == 16)
+      cp_async<16>(to, from, n);
+    else if (bytes == 8)
+      cp_async<8>(to, from, n);
+    else
+      cp_async<4>(to, from, n);
+  }
+}
+
+// kV consecutive float32 values from shared memory (kV = 2 or 4, aligned).
+template <int kV>
+__device__ __forceinline__ void load_vec(const float* p, float* v) {
+  if constexpr (kV == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x, v[1] = q.y;
+  }
+}
+
+// kV consecutive outputs (c .. c + kV) of one row; `vec`: the row length is
+// a multiple of kV, so all lie inside it and form one aligned store.
+template <int kV, typename T>
+__device__ __forceinline__ void store_vec(T* out, long long off, int c, int n,
+                                          const float* v, bool vec) {
+  if constexpr (kV == 4) {
+    if (vec) {
+      Store4<T, true>::run(out, off, c, n,
+                           *reinterpret_cast<const float(*)[4]>(v));
+      return;
+    }
+  } else if constexpr (std::is_same_v<T, float>) {
+    if (vec) {
+      *reinterpret_cast<float2*>(out + off) = make_float2(v[0], v[1]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kV; ++j)
+    if (c + j < n) out[off + j] = from_f32<T>(v[j]);
+}
+
+// float32: the staged steps on the CUDA cores.
+template <int kTile>
+__global__ void __launch_bounds__(kThreads, 2)
+    wgrad_fma_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                     const float* __restrict__ y, float* __restrict__ dw,
+                     float* __restrict__ db, float* __restrict__ partial,
+                     float* __restrict__ db_partial, int M, int K, int N,
+                     int chunk, int x_bytes, int gy_bytes, int act,
+                     float slope) {
+  using G = WgGeom<kTile>;
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  __shared__ float db_rows[G::kPassRows][kTile];
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int n0 = blockIdx.x * kTile;
+  const int k0 = blockIdx.y * kTile;
+  const int split = blockIdx.z;
+  const int m_begin = split * chunk;
+  const int m_end = min(M, m_begin + chunk);
+  const int steps = (m_end - m_begin + kWgStepM - 1) / kWgStepM;
+  const bool use_y = act != kLinear;     // linear: act' = 1 whatever y is
+  float* const ring = reinterpret_cast<float*>(wg_smem);
+
+  auto stage = [&](int s, int step) {
+    float* xs = ring + (s * 3) * G::kArray;
+    const int row0 = m_begin + step * kWgStepM;
+    wgrad_stage<float, kTile>(xs, x, K, k0, row0, m_end, x_bytes, tid);
+    wgrad_stage<float, kTile>(xs + G::kArray, g, N, n0, row0, m_end,
+                              gy_bytes, tid);
+    if (use_y)
+      wgrad_stage<float, kTile>(xs + 2 * G::kArray, y, N, n0, row0, m_end,
+                                gy_bytes, tid);
+    cp_async_commit();
+  };
+
+  float acc[G::kPer][G::kPer];
+#pragma unroll
+  for (int i = 0; i < G::kPer; ++i)
+#pragma unroll
+    for (int j = 0; j < G::kPer; ++j) acc[i][j] = 0.f;
+  float db_acc = 0.f;
+  // The pass's map: column tid % kTile of rows tid / kTile + kPassRows r.
+  const int pc = tid % kTile, pr = tid / kTile;
+
+  stage(0, 0);
+  if (steps > 1)
+    stage(1, 1);
+  else
+    cp_async_commit();                   // keeps one group per step
+  for (int step = 0; step < steps; ++step) {
+    const float* const xs = ring + ((step & 1) * 3) * G::kArray;
+    float* const ss = ring + ((step & 1) * 3 + 1) * G::kArray;   // g, then s
+    const float* const ys = ss + G::kArray;
+    cp_async_wait_prior();               // this step's group has landed
+    __syncthreads();
+#pragma unroll
+    for (int r = pr; r < kWgStepM; r += G::kPassRows) {
+      const int o = r * G::kPitch + pc;
+      float s = ss[o];
+      if (use_y) {
+        s *= activation_grad(ys[o], act, slope);
+        ss[o] = s;
+      }
+      db_acc += s;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int m = 0; m < kWgStepM; ++m) {
+      float a[G::kPer], b[G::kPer];
+#pragma unroll
+      for (int q = 0; q < G::kGroups; ++q) {
+        load_vec<G::kV>(xs + m * G::kPitch + q * G::kSpan + ty * G::kV,
+                        a + q * G::kV);
+        load_vec<G::kV>(ss + m * G::kPitch + q * G::kSpan + tx * G::kV,
+                        b + q * G::kV);
+      }
+#pragma unroll
+      for (int i = 0; i < G::kPer; ++i)
+#pragma unroll
+        for (int j = 0; j < G::kPer; ++j)
+          acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();                     // the stage is free again
+    if (step + 2 < steps)
+      stage(step & 1, step + 2);
+    else
+      cp_async_commit();
+  }
+
+  const bool fused = partial == nullptr;
+  const bool vec = N % G::kV == 0;
+#pragma unroll
+  for (int i = 0; i < G::kPer; ++i) {
+    const int k = k0 + (i / G::kV) * G::kSpan + ty * G::kV + i % G::kV;
+    if (k >= K) continue;
+#pragma unroll
+    for (int q = 0; q < G::kGroups; ++q) {
+      const int c = n0 + q * G::kSpan + tx * G::kV;
+      if (c >= N) continue;
+      if (fused)
+        store_vec<G::kV>(dw, static_cast<long long>(k) * N + c, c, N,
+                         acc[i] + q * G::kV, vec);
+      else
+        store_vec<G::kV>(partial,
+                         (static_cast<long long>(split) * K + k) * N + c, c,
+                         N, acc[i] + q * G::kV, vec);
+    }
+  }
+  if (blockIdx.y == 0) {                 // block-uniform
+    db_rows[pr][pc] = db_acc;
+    __syncthreads();
+    if (tid < kTile && n0 + tid < N) {
+      float total = 0.f;
+#pragma unroll
+      for (int r = 0; r < G::kPassRows; ++r) total += db_rows[r][tid];
+      if (fused) {
+        if (db != nullptr) db[n0 + tid] = total;
+      } else if (db_partial != nullptr) {
+        db_partial[static_cast<long long>(split) * N + n0 + tid] = total;
+      }
+    }
+  }
+}
+
+// bfloat16: a staged step's product into the warp's tensor-core tiles.
+// live_i, live_j: the warp's tiles along K and N that reach inside the
+// layer; with_db: this warp sums s for db (its rows start the K tile 0).
+template <int kTile>
+__device__ __forceinline__ void wgrad_mma_step(
+    float (&acc)[WgGeom<kTile>::kI][WgGeom<kTile>::kJ][4],
+    float (&db)[WgGeom<kTile>::kJ], const __nv_bfloat16* xs,
+    const __nv_bfloat16* gs, const __nv_bfloat16* ys, int wk0, int wn0,
+    int live_i, int live_j, bool with_db, bool use_y, int act, float slope,
+    int lane) {
+  using G = WgGeom<kTile>;
+  constexpr int kP = G::kPitch;
+  // ldmatrix: lane l gives the address of row (l & 7) of matrix l >> 3.
+  const int mat = lane >> 3, row = lane & 7;
+#pragma unroll
+  for (int ks = 0; ks < kWgStepM; ks += 16) {
+    uint32_t bh[G::kJ][2], bl[G::kJ][2];
+#pragma unroll
+    for (int jp = 0; jp < (G::kJ + 1) / 2; ++jp) {
+      // Matrices: (n-tile 2jp: rows ks.., ks + 8..), (2jp + 1: the same);
+      // a warp one tile wide reads the first two only.
+      constexpr int kE = G::kJ == 1 ? 2 : 4;
+      const int off =
+          (ks + (mat & 1) * 8 + row) * kP + wn0 + 16 * jp + (mat >> 1) * 8;
+      uint32_t gr[4], yr[4];
+      if constexpr (kE == 2) {
+        ldsm_x2_trans(reinterpret_cast<uint32_t(&)[2]>(gr), gs + off);
+        if (use_y)
+          ldsm_x2_trans(reinterpret_cast<uint32_t(&)[2]>(yr), ys + off);
+      } else {
+        ldsm_x4_trans(gr, gs + off);
+        if (use_y) ldsm_x4_trans(yr, ys + off);
+      }
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const __nv_bfloat162 g2 =
+            *reinterpret_cast<const __nv_bfloat162*>(&gr[e]);
+        float s0 = __low2float(g2), s1 = __high2float(g2);
+        if (use_y) {
+          const __nv_bfloat162 y2 =
+              *reinterpret_cast<const __nv_bfloat162*>(&yr[e]);
+          s0 *= activation_grad(__low2float(y2), act, slope);
+          s1 *= activation_grad(__high2float(y2), act, slope);
+        }
+        const int j = 2 * jp + (e >> 1);
+        if (with_db) db[j] += s0 + s1;
+        split_bf16x2(s0, s1, bh[j][e & 1], bl[j][e & 1]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < G::kI; ++i) {
+      if (i >= live_i) break;
+      // a0..a3: (k 0-7, m 0-7), (k 8-15, m 0-7), (k 0-7, m 8-15), (k 8-15,
+      // m 8-15) of the tile, x staged (m, k).
+      const int off =
+          (ks + (mat >> 1) * 8 + row) * kP + wk0 + 16 * i + (mat & 1) * 8;
+      uint32_t a[4];
+      ldsm_x4_trans(a, xs + off);
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int j = 0; j < G::kJ; ++j) {
+          if (j >= live_j) break;
+          mma_bf16(acc[i][j], a, p == 0 ? bl[j] : bh[j]);
+        }
+    }
+  }
+}
+
+// Two neighbouring outputs (c, c + 1) of one row; `even`: the row length
+// is even, so both lie inside it and form one aligned store (else `second`
+// says whether c + 1 does).
+template <typename T>
+__device__ __forceinline__ void store2(T* out, long long off, float v0,
+                                       float v1, bool even, bool second) {
+  if constexpr (std::is_same_v<T, float>) {
+    if (even) {
+      *reinterpret_cast<float2*>(out + off) = make_float2(v0, v1);
+      return;
+    }
+  } else {
+    if (even) {
+      *reinterpret_cast<__nv_bfloat162*>(out + off) =
+          __floats2bfloat162_rn(v0, v1);
+      return;
+    }
+  }
+  out[off] = from_f32<T>(v0);
+  if (second) out[off + 1] = from_f32<T>(v1);
+}
+
+template <int kTile>
+__global__ void __launch_bounds__(kThreads, 2)
+    wgrad_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                     const __nv_bfloat16* __restrict__ g,
+                     const __nv_bfloat16* __restrict__ y,
+                     __nv_bfloat16* __restrict__ dw,
+                     __nv_bfloat16* __restrict__ db,
+                     float* __restrict__ partial,
+                     float* __restrict__ db_partial, int M, int K, int N,
+                     int chunk, int x_bytes, int gy_bytes, int act,
+                     float slope) {
+  using T = __nv_bfloat16;
+  using G = WgGeom<kTile>;
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.x * kTile;
+  const int k0 = blockIdx.y * kTile;
+  const int split = blockIdx.z;
+  const int m_begin = split * chunk;
+  const int m_end = min(M, m_begin + chunk);
+  const int steps = (m_end - m_begin + kWgStepM - 1) / kWgStepM;
+  const int wk0 = (warp >> 2) * G::kWarpK;
+  const int wn0 = (warp & 3) * G::kWarpN;
+  // The warp's tiles that reach inside K and N (warp-uniform).
+  const int live_i = min(G::kI, max(0, (K - k0 - wk0 + 15) / 16));
+  const int live_j = min(G::kJ, max(0, (N - n0 - wn0 + 7) / 8));
+  const bool live = live_i > 0 && live_j > 0;
+  // db: the warps of the tile's first K rows, in the first K tile.
+  const bool with_db = blockIdx.y == 0 && wk0 == 0 && live_j > 0;
+  const bool use_y = act != kLinear;     // linear: act' = 1 whatever y is
+  T* const ring = reinterpret_cast<T*>(wg_smem);
+
+  auto stage = [&](int s, int step) {
+    T* xs = ring + (s * 3) * G::kArray;
+    const int row0 = m_begin + step * kWgStepM;
+    wgrad_stage<T, kTile>(xs, x, K, k0, row0, m_end, x_bytes, tid);
+    wgrad_stage<T, kTile>(xs + G::kArray, g, N, n0, row0, m_end, gy_bytes,
+                          tid);
+    if (use_y)
+      wgrad_stage<T, kTile>(xs + 2 * G::kArray, y, N, n0, row0, m_end,
+                            gy_bytes, tid);
+    cp_async_commit();
+  };
+
+  float acc[G::kI][G::kJ][4];
+#pragma unroll
+  for (int i = 0; i < G::kI; ++i)
+#pragma unroll
+    for (int j = 0; j < G::kJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  float db_acc[G::kJ];
+#pragma unroll
+  for (int j = 0; j < G::kJ; ++j) db_acc[j] = 0.f;
+
+  stage(0, 0);
+  if (steps > 1)
+    stage(1, 1);
+  else
+    cp_async_commit();                   // keeps one group per step
+  for (int step = 0; step < steps; ++step) {
+    const T* const xs = ring + ((step & 1) * 3) * G::kArray;
+    cp_async_wait_prior();               // this step's group has landed
+    __syncthreads();
+    if (live)
+      wgrad_mma_step<kTile>(acc, db_acc, xs, xs + G::kArray,
+                            xs + 2 * G::kArray, wk0, wn0, live_i, live_j,
+                            with_db, use_y, act, slope, lane);
+    __syncthreads();                     // the stage is free again
+    if (step + 2 < steps)
+      stage(step & 1, step + 2);
+    else
+      cp_async_commit();
+  }
+
+  const bool fused = partial == nullptr;
+  if (live) {
+    const bool even = (N & 1) == 0;
+#pragma unroll
+    for (int i = 0; i < G::kI; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = k0 + wk0 + 16 * i + (lane >> 2) + 8 * h;
+        if (k >= K) continue;
+#pragma unroll
+        for (int j = 0; j < G::kJ; ++j) {
+          const int n = n0 + wn0 + 8 * j + 2 * (lane & 3);
+          if (n >= N) continue;
+          const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+          if (fused)
+            store2(dw, static_cast<long long>(k) * N + n, v0, v1, even,
+                   n + 1 < N);
+          else
+            store2(partial, (static_cast<long long>(split) * K + k) * N + n,
+                   v0, v1, even, n + 1 < N);
+        }
+      }
+  }
+  if (with_db) {
+    // Each column's sum lies over the 4 lanes that share it (the pairs of
+    // rows of the fragments): a fixed shuffle tree.
+#pragma unroll
+    for (int j = 0; j < G::kJ; ++j) {
+      float t = db_acc[j];
+      t += __shfl_xor_sync(0xffffffffu, t, 1);
+      t += __shfl_xor_sync(0xffffffffu, t, 2);
+      const int n = n0 + wn0 + 8 * j + (lane >> 2);
+      if ((lane & 3) == 0 && n < N) {
+        if (fused) {
+          if (db != nullptr) db[n] = from_f32<T>(t);
+        } else if (db_partial != nullptr) {
+          db_partial[static_cast<long long>(split) * N + n] = t;
+        }
+      }
+    }
+  }
+}
+
+constexpr int kFmaTile = 128;   // rows of K and columns of N a block
+constexpr int kFmaStepM = 16;   // rows of M staged a step
+
+// float32 at the 128 tile (the DFP's 11410 x 4000 and 4000 x 1000 at M =
+// 64, whose tiles fill the card; never split): the 16-row steps are loaded
+// into registers while the step before is computed, g * act'(y) formed
+// there, and staged in shared memory.  On these layers it is faster than
+// wgrad_fma_kernel<128>, the cp.async ring above at the same 8 x 8
+// micro-tile (PERF.md section 6 has both times).
 // grid = (ceil(N / 128), ceil(K / 128)); block = 256 threads.  Thread
 // (tx, ty) = (tid % 16, tid / 16) owns rows {ty*4 .. +3, 64 + ty*4 .. +3}
 // and columns {tx*4 .. +3, 64 + tx*4 .. +3} of the block's dW tile.  The
 // blocks of the first K tile (blockIdx.y == 0) also sum the staged, scaled
 // g over M into db, in a fixed order.
-template <typename T, bool kVec>
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
-    wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                 const T* __restrict__ y, T* __restrict__ dw,
-                 T* __restrict__ db, int M, int K, int N, int act,
-                 float slope) {
-  constexpr int kPer = kWgStepM * kWgTileK / kThreads;  // 8 per thread
-  static_assert(kWgTileK == kWgTileN, "one staging map for x and g");
-  __shared__ __align__(16) float xs[kWgStepM][kWgTileK];
-  __shared__ __align__(16) float gs[kWgStepM][kWgTileN];
+    wgrad_fma128_kernel(const float* __restrict__ x,
+                     const float* __restrict__ g,
+                     const float* __restrict__ y, float* __restrict__ dw,
+                     float* __restrict__ db, int M, int K, int N, int act,
+                     float slope) {
+  using T = float;
+  constexpr int kPer = kFmaStepM * kFmaTile / kThreads;  // 8 per thread
+  __shared__ __align__(16) float xs[kFmaStepM][kFmaTile];
+  __shared__ __align__(16) float gs[kFmaStepM][kFmaTile];
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int n0 = blockIdx.x * kWgTileN;
-  const int k0 = blockIdx.y * kWgTileK;
+  const int n0 = blockIdx.x * kFmaTile;
+  const int k0 = blockIdx.y * kFmaTile;
   // Staging map: element r of this thread is row 2r + sr, column sc of the
   // stage; a warp reads 32 consecutive columns of one row.
-  const int sc = tid & (kWgTileK - 1);
-  const int sr = tid / kWgTileK;
+  const int sc = tid & (kFmaTile - 1);
+  const int sr = tid / kFmaTile;
   const bool k_live = k0 + sc < K;
   const bool n_live = n0 + sc < N;
 
@@ -192,11 +722,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  const bool with_db = db != nullptr && blockIdx.y == 0 && tid < kWgTileN;
+  const bool with_db = db != nullptr && blockIdx.y == 0 && tid < kFmaTile;
   float db_acc = 0.f;
 
   load(0);
-  for (int m0 = 0; m0 < M; m0 += kWgStepM) {
+  for (int m0 = 0; m0 < M; m0 += kFmaStepM) {
     // Rows past M and columns past K or N stage as zero.
 #pragma unroll
     for (int r = 0; r < kPer; ++r) {
@@ -204,13 +734,13 @@ __global__ void __launch_bounds__(kThreads, 2)
       gs[2 * r + sr][sc] = gr[r] * activation_grad(yr[r], act, slope);
     }
     __syncthreads();
-    if (m0 + kWgStepM < M) load(m0 + kWgStepM);
+    if (m0 + kFmaStepM < M) load(m0 + kFmaStepM);
     if (with_db) {
 #pragma unroll
-      for (int m = 0; m < kWgStepM; ++m) db_acc += gs[m][tid];
+      for (int m = 0; m < kFmaStepM; ++m) db_acc += gs[m][tid];
     }
 #pragma unroll
-    for (int m = 0; m < kWgStepM; ++m) {
+    for (int m = 0; m < kFmaStepM; ++m) {
       const float4 a0 = *reinterpret_cast<const float4*>(&xs[m][ty * 4]);
       const float4 a1 = *reinterpret_cast<const float4*>(&xs[m][64 + ty * 4]);
       const float4 b0 = *reinterpret_cast<const float4*>(&gs[m][tx * 4]);
@@ -240,6 +770,43 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
     }
   }
+}
+
+// dW and db from the splits' float32 partial sums: element i < K N of dW,
+// then the N of db.  A block takes 32 consecutive outputs; each of its 8
+// warps sums one contiguous eighth of the splits, in order, and the eight
+// sums are added in order: a fixed order, whatever the scheduling.
+constexpr int kSumCols = 32;
+constexpr int kSumGroups = kThreads / kSumCols;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    wgrad_sum_kernel(const float* __restrict__ partial,
+                     const float* __restrict__ db_partial, T* __restrict__ dw,
+                     T* __restrict__ db, long long kn, int N, int splits) {
+  __shared__ float sums[kSumGroups][kSumCols];
+  const int lane = threadIdx.x % kSumCols, grp = threadIdx.x / kSumCols;
+  const long long i = static_cast<long long>(blockIdx.x) * kSumCols + lane;
+  const int per = (splits + kSumGroups - 1) / kSumGroups;
+  const int q0 = grp * per, q1 = min(splits, q0 + per);
+  float s = 0.f;
+  if (i < kn) {
+#pragma unroll 4
+    for (int q = q0; q < q1; ++q) s += partial[q * kn + i];
+  } else if (i < kn + N) {
+    for (int q = q0; q < q1; ++q)
+      s += db_partial[static_cast<long long>(q) * N + (i - kn)];
+  }
+  sums[grp][lane] = s;
+  __syncthreads();
+  if (grp != 0) return;
+  float t = 0.f;
+#pragma unroll
+  for (int q = 0; q < kSumGroups; ++q) t += sums[q][lane];
+  if (i < kn)
+    dw[i] = from_f32<T>(t);
+  else if (i < kn + N && db != nullptr)
+    db[i - kn] = from_f32<T>(t);
 }
 
 // ------------------------------------------------------------------ dgrad
@@ -393,21 +960,83 @@ void launch_dgrad(const void* g, const void* y, const void* w, void* dx,
 }
 
 template <typename T>
-void launch_wgrad(const void* x, const void* g, const void* y, void* dw,
-                  void* db, int M, int K, int N, int vec, int act,
-                  float slope, cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  const T* gt = static_cast<const T*>(g);
-  const T* yt = static_cast<const T*>(y);
-  T* dwt = static_cast<T*>(dw);
-  T* dbt = static_cast<T*>(db);
-  const dim3 grid((N + kWgTileN - 1) / kWgTileN, (K + kWgTileK - 1) / kWgTileK);
-  if (vec)
-    wgrad_kernel<T, true><<<grid, kThreads, 0, stream>>>(xt, gt, yt, dwt, dbt,
-                                                         M, K, N, act, slope);
-  else
-    wgrad_kernel<T, false><<<grid, kThreads, 0, stream>>>(
-        xt, gt, yt, dwt, dbt, M, K, N, act, slope);
+struct WgradKernel;
+template <>
+struct WgradKernel<float> {
+  template <int kTile>
+  static constexpr auto get() { return wgrad_fma_kernel<kTile>; }
+};
+template <>
+struct WgradKernel<__nv_bfloat16> {
+  template <int kTile>
+  static constexpr auto get() { return wgrad_mma_kernel<kTile>; }
+};
+
+template <typename T, int kTile>
+cudaError_t launch_wgrad_tile(const void* x, const void* g, const void* y,
+                              void* dw, void* db, float* partial,
+                              float* db_partial, int M, int K, int N,
+                              int splits, int chunk, int x_bytes, int gy_bytes,
+                              int act, float slope, cudaStream_t stream) {
+  constexpr auto kernel = WgradKernel<T>::template get<kTile>();
+  constexpr int bytes = WgGeom<kTile>::kSmem(static_cast<int>(sizeof(T)));
+  static bool configured = false;        // once per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid((N + kTile - 1) / kTile, (K + kTile - 1) / kTile, splits);
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g),
+      static_cast<const T*>(y), static_cast<T*>(dw), static_cast<T*>(db),
+      splits > 1 ? partial : nullptr, db_partial, M, K, N, chunk, x_bytes,
+      gy_bytes, act, slope);
+  if (splits == 1) return cudaSuccess;
+  const long long kn = static_cast<long long>(K) * N;
+  const unsigned blocks =
+      static_cast<unsigned>((kn + N + kSumCols - 1) / kSumCols);
+  wgrad_sum_kernel<T><<<blocks, kThreads, 0, stream>>>(
+      partial, db_partial, static_cast<T*>(dw), static_cast<T*>(db), kn, N,
+      splits);
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch_wgrad(const void* x, const void* g, const void* y,
+                         void* dw, void* db, float* partial,
+                         float* db_partial, int M, int K, int N, int tile,
+                         int splits, int chunk, int x_bytes, int gy_bytes,
+                         int act, float slope, cudaStream_t stream) {
+  if constexpr (std::is_same_v<T, float>) {
+    if (tile == 128) {                   // never split (kernel.py's plan)
+      if (splits != 1) return cudaErrorInvalidValue;
+      const dim3 grid((N + kFmaTile - 1) / kFmaTile,
+                      (K + kFmaTile - 1) / kFmaTile);
+      auto kernel = N % 4 == 0 ? wgrad_fma128_kernel<true>
+                               : wgrad_fma128_kernel<false>;
+      kernel<<<grid, kThreads, 0, stream>>>(
+          static_cast<const float*>(x), static_cast<const float*>(g),
+          static_cast<const float*>(y), static_cast<float*>(dw),
+          static_cast<float*>(db), M, K, N, act, slope);
+      return cudaSuccess;
+    }
+  } else {
+    if (tile == 128)
+      return launch_wgrad_tile<T, 128>(x, g, y, dw, db, partial, db_partial,
+                                       M, K, N, splits, chunk, x_bytes,
+                                       gy_bytes, act, slope, stream);
+  }
+  if (tile == 64)
+    return launch_wgrad_tile<T, 64>(x, g, y, dw, db, partial, db_partial, M,
+                                    K, N, splits, chunk, x_bytes, gy_bytes,
+                                    act, slope, stream);
+  if (tile == 32)
+    return launch_wgrad_tile<T, 32>(x, g, y, dw, db, partial, db_partial, M,
+                                    K, N, splits, chunk, x_bytes, gy_bytes,
+                                    act, slope, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -432,18 +1061,30 @@ int mrsch_fused_mlp_dgrad(const void* g, const void* y, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// db may be null: then only dW is written.
+// db may be null: then only dW is written.  partial (splits, K, N) and
+// db_partial (splits, N), float32, are used only when splits > 1.  tile:
+// 128, 64 or 32.  x_bytes and gy_bytes: the cp.async chunk (16, 8 or 4) the
+// rows of x and of g and y are aligned to, or 0 to stage them element by
+// element.
 int mrsch_fused_mlp_wgrad(const void* x, const void* g, const void* y,
-                          void* dw, void* db, int M, int K, int N, int vec,
-                          int act, float slope, int dtype, void* stream) {
+                          void* dw, void* db, void* partial, void* db_partial,
+                          int M, int K, int N, int tile, int splits,
+                          int chunk, int x_bytes, int gy_bytes, int act,
+                          float slope, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(partial);
+  float* dp = static_cast<float*>(db_partial);
+  cudaError_t err;
   if (dtype == kFloat32)
-    launch_wgrad<float>(x, g, y, dw, db, M, K, N, vec, act, slope, s);
+    err = launch_wgrad<float>(x, g, y, dw, db, p, dp, M, K, N, tile, splits,
+                              chunk, x_bytes, gy_bytes, act, slope, s);
   else if (dtype == kBFloat16)
-    launch_wgrad<__nv_bfloat16>(x, g, y, dw, db, M, K, N, vec, act, slope,
-                                s);
+    err = launch_wgrad<__nv_bfloat16>(x, g, y, dw, db, p, dp, M, K, N, tile,
+                                      splits, chunk, x_bytes, gy_bytes, act,
+                                      slope, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

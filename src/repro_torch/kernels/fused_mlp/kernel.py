@@ -32,6 +32,9 @@ BLOCKS_PER_SM = 4       # blocks the split aims to put in flight per SM
 DGRAD_TILE = 64         # rows of M and columns of K per dgrad block
 DGRAD_STEP_N = 32       # columns of N staged per step
 MIN_SPLIT_COLS = 128    # shortest N range a dgrad split covers
+WGRAD_TILES = (128, 64, 32)  # square wgrad tiles of K x N, 8 warps each
+WGRAD_STEP_M = 32           # rows of M a wgrad ring stage holds
+MIN_WGRAD_SPLIT_ROWS = 64   # shortest M slice a wgrad split covers
 
 
 def build() -> BuildInfo:
@@ -61,7 +64,7 @@ def _backward_library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.mrsch_fused_mlp_wgrad.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.mrsch_fused_mlp_dgrad.restype = ctypes.c_int
     lib.mrsch_fused_mlp_wgrad.restype = ctypes.c_int
@@ -151,23 +154,77 @@ def fused_mlp_dgrad(g: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     return dx
 
 
+def _tiles(k: int, n: int, tile: int) -> int:
+    return -(-k // tile) * -(-n // tile)
+
+
+def wgrad_tile(m: int, k: int, n: int, sm_count: int) -> int:
+    """The wgrad's square tile: the largest of ``WGRAD_TILES`` of which the
+    layer has at least one tile per SM (the DFP's 11410 x 4000 and 4000 x
+    1000: 128); else 64 where M is long enough to be split, and 32 where it
+    is not, so that a small layer's product spreads over more SMs."""
+    for tile in WGRAD_TILES[:2]:
+        if _tiles(k, n, tile) >= sm_count:
+            return tile
+    return 64 if m >= 2 * MIN_WGRAD_SPLIT_ROWS else 32
+
+
+def wgrad_split_plan(m: int, k: int, n: int, sm_count: int) -> tuple:
+    """(splits, chunk) of the wgrad: M, the contraction, is cut into
+    ``splits`` slices of ``chunk`` rows (a multiple of ``WGRAD_STEP_M``)
+    until about ``BLOCKS_PER_SM`` blocks per SM are in flight, never into
+    slices shorter than ``MIN_WGRAD_SPLIT_ROWS``; a layer whose tiles fill
+    the card is not split.  The attention encoder's layers (K, N <= 128:
+    one or two tiles) at M = 8,256 get 129 slices of 64 rows; the DFP's
+    layers at M = 64 keep one."""
+    tiles = _tiles(k, n, wgrad_tile(m, k, n, sm_count))
+    want = 1 if tiles >= sm_count else min(
+        65535, -(-BLOCKS_PER_SM * sm_count // tiles))
+    chunk = max(MIN_WGRAD_SPLIT_ROWS, -(-m // want))
+    chunk = -(-chunk // WGRAD_STEP_M) * WGRAD_STEP_M
+    return -(-m // chunk), chunk
+
+
+def _copy_bytes(row: int, t: torch.Tensor) -> int:
+    """The widest ``cp.async`` chunk (16, 8 or 4 bytes) that rows of ``row``
+    elements of ``t`` are aligned to, or 0 (stage element by element)."""
+    row_bytes = row * t.element_size()
+    return next((c for c in (16, 8, 4)
+                 if row_bytes % c == 0 and t.data_ptr() % c == 0), 0)
+
+
 def fused_mlp_wgrad(x: torch.Tensor, g: torch.Tensor, y: torch.Tensor,
                     activation: str, slope: float) -> tuple:
     """Launch the wgrad on CUDA tensors the caller has checked: x (M, K),
     g, y (M, N), one dtype, contiguous, on one device -> (dW (K, N),
-    db (N,)), both from the one launch."""
+    db (N,)), both from the one call (with more than one split, the
+    kernel and the pass that adds the splits' partial sums)."""
     m, k = x.shape
     n = g.shape[1]
     device = x.device
+    sms = _sm_count(device.index)
+    tile = wgrad_tile(m, k, n, sms)
+    splits, chunk = wgrad_split_plan(m, k, n, sms)
     dw = torch.empty((k, n), dtype=x.dtype, device=device)
     db = torch.empty((n,), dtype=x.dtype, device=device)
+    partial = db_partial = None
+    if splits > 1:
+        partial = torch.empty((splits, k, n), dtype=torch.float32,
+                              device=device)
+        db_partial = torch.empty((splits, n), dtype=torch.float32,
+                                 device=device)
+    x_bytes = _copy_bytes(k, x)
+    gy_bytes = min(_copy_bytes(n, g), _copy_bytes(n, y))
     lib = _backward_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.mrsch_fused_mlp_wgrad(
             x.data_ptr(), g.data_ptr(), y.data_ptr(), dw.data_ptr(),
-            db.data_ptr(), m, k, n, int(n % 4 == 0),
+            db.data_ptr(), partial.data_ptr() if partial is not None else None,
+            db_partial.data_ptr() if db_partial is not None else None,
+            m, k, n, tile, splits, chunk, x_bytes, gy_bytes,
             ACTIVATIONS.index(activation), float(slope), DTYPES[x.dtype],
             stream)
-    check_launch(lib, "fused_mlp_wgrad", err, f"M={m} K={k} N={n}")
+    check_launch(lib, "fused_mlp_wgrad", err,
+                 f"M={m} K={k} N={n} tile={tile} splits={splits}")
     return dw, db

@@ -230,6 +230,59 @@ def test_gradient_kernels_match_plain_versions(cuda, m, k, n, dtype, tol):
                                    atol=atol)
 
 
+# The attention encoder's token layers (K, N) at M up to 64 x 129: the
+# wgrad splits M across blocks and adds the splits in a fixed order.
+ENCODER_WGRAD = [(4, 64), (64, 64), (64, 128), (128, 64)]
+
+
+@pytest.mark.parametrize("k,n", ENCODER_WGRAD)
+@pytest.mark.parametrize("m", [8192, 8255, 8256])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-3, 1e-4)),
+                                       (torch.bfloat16, (2e-2, 2e-2))])
+def test_wgrad_split_along_m_matches_plain_version(cuda, m, k, n, dtype,
+                                                   tol):
+    """dW and db at the encoder's shapes, where M is split, against the
+    plain version, all four activations, at the reference's gradient
+    tolerance (bfloat16: 2e-2)."""
+    from repro_torch.kernels.fused_mlp import (fused_mlp_wgrad,
+                                               fused_mlp_wgrad_ref, kernel)
+    from repro_torch.kernels.fused_mlp.ref import apply_activation
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert kernel.wgrad_split_plan(m, k, n, sms)[0] > 1
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
+    pre = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
+    x, g = x.to(cuda, dtype), g.to(cuda, dtype)
+    rtol, atol = tol
+    for act in ACTIVATIONS:
+        y = apply_activation(pre, act, 0.2).to(cuda, dtype)
+        dw, db = fused_mlp_wgrad(x, g, y, activation=act)
+        ref_dw, ref_db = fused_mlp_wgrad_ref(x, g, y, act)
+        torch.cuda.synchronize()
+        assert dw.dtype == db.dtype == dtype
+        torch.testing.assert_close(dw.float(), ref_dw.float(), rtol=rtol,
+                                   atol=atol)
+        torch.testing.assert_close(db.float(), ref_db.float(), rtol=rtol,
+                                   atol=atol)
+
+
+@pytest.mark.parametrize("m,k,n", [(8256, 64, 64), (8192, 4, 64),
+                                   (64, 11410, 4000), (64, 128, 128)])
+def test_wgrad_repeats_bit_for_bit(cuda, m, k, n):
+    """Two launches on the same inputs give the same bits: the splits'
+    partial sums are added in a fixed order, not in the blocks' order."""
+    from repro_torch.kernels.fused_mlp import fused_mlp_wgrad
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    x = torch.randn(m, k, generator=gen, device=cuda)
+    g = torch.randn(m, n, generator=gen, device=cuda)
+    y = torch.randn(m, n, generator=gen, device=cuda)
+    first = fused_mlp_wgrad(x, g, y, activation="leaky_relu")
+    for _ in range(3):
+        again = fused_mlp_wgrad(x, g, y, activation="leaky_relu")
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
 def test_gradient_kernels_reject_and_never_fall_back(cuda):
     from repro_torch.kernels.fused_mlp import fused_mlp_dgrad, fused_mlp_wgrad
     g = torch.ones(4, 8, device=cuda)
@@ -469,10 +522,14 @@ def test_flash_kernel_matches_plain_version(cuda, b, s, h, kv, dh, dtype,
                                                      flash_attention_ref)
     q, k, v = _flash_case(b, s, s, h, kv, dh, dtype, s + h + dh, cuda)
     launches = flash_attention.launches
+    by_kernel = dict(flash_attention.kernel_launches)
     out = flash_attention(q, k, v, causal=causal)
     ref = flash_attention_ref(q, k, v, causal)
     torch.cuda.synchronize()
     assert flash_attention.launches == launches + 1
+    name = "flash_fwd" if dtype == torch.float32 else "flash_fwd_sm90"
+    by_kernel[name] += 1
+    assert flash_attention.kernel_launches == by_kernel
     assert out.dtype == dtype and out.shape == q.shape
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
@@ -497,6 +554,23 @@ def test_flash_kernel_with_unequal_lengths(cuda, sq, sk, causal):
     out = flash_attention(q, k, v, causal=causal)
     torch.testing.assert_close(out, flash_attention_ref(q, k, v, causal),
                                rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("sq,sk", [(100, 260), (260, 100), (1, 300)])
+@pytest.mark.parametrize("dh", [64, 112, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bfloat16_kernel_with_unequal_lengths(cuda, sq, sk, dh,
+                                                    causal):
+    """The wgmma kernel with Sq != Sk and GQA: keys past Sk (zero-filled by
+    TMA) masked, the causal mask top-left aligned, rows past Sq unwritten."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    q, k, v = _flash_case(2, sq, sk, 4, 2, dh, torch.bfloat16, sq + sk + dh,
+                          cuda)
+    out = flash_attention(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(),
+                               flash_attention_ref(q, k, v, causal).float(),
+                               rtol=2e-2, atol=2e-2)
 
 
 def test_flash_wrapper_rejects_and_never_falls_back(cuda):

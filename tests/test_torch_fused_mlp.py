@@ -235,3 +235,27 @@ def test_dgrad_split_plan_covers_n(m, k, n):
     assert 1 <= splits <= 65535 and chunk % kernel.DGRAD_STEP_N == 0
     assert (splits - 1) * chunk < n <= splits * chunk   # no empty split
     assert splits == 1 or chunk >= kernel.MIN_SPLIT_COLS
+
+
+# The attention encoder's token layers at M up to 64 x 129, and the DFP's
+# layers at M = 64 (the minibatch) and beyond.
+WGRAD_SHAPES = ([(m, k, n) for m in (8192, 8255, 8256)
+                 for k, n in ((4, 64), (64, 64), (64, 128), (128, 64))]
+                + [(64, 11410, 4000), (64, 4000, 1000), (64, 1000, 512),
+                   (64, 768, 512), (64, 128, 128), (64, 2, 128),
+                   (64, 512, 12), (1, 512, 120), (37, 300, 129),
+                   (128, 4000, 1000), (1000, 63, 7)])
+
+
+@pytest.mark.parametrize("m,k,n", WGRAD_SHAPES)
+def test_wgrad_split_plan_covers_m(m, k, n):
+    splits, chunk = kernel.wgrad_split_plan(m, k, n, sm_count=132)
+    assert 1 <= splits <= 65535 and chunk % kernel.WGRAD_STEP_M == 0
+    assert (splits - 1) * chunk < m <= splits * chunk   # no empty slice
+    assert splits == 1 or chunk >= kernel.MIN_WGRAD_SPLIT_ROWS
+    tile = kernel.wgrad_tile(m, k, n, sm_count=132)
+    assert tile in kernel.WGRAD_TILES
+    if m >= 8192:             # one or two tiles: M is what fills the card
+        assert splits >= 64 and chunk == kernel.MIN_WGRAD_SPLIT_ROWS
+    if -(-k // tile) * -(-n // tile) >= 132:
+        assert splits == 1    # the tiles alone fill the card

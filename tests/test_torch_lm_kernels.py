@@ -17,7 +17,7 @@ from repro.kernels.ssd.ref import ssd_ref as jssd_ref
 from repro.models.mamba2 import _ssd_chunked as j_ssd_chunked
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention,
-                                                 flash_attention_ref)
+                                                 flash_attention_ref, kernel)
 from repro_torch.kernels.ssd import ssd, ssd_chunk_ref, ssd_plain, ssd_ref
 from repro_torch.kernels.ssd.ref import prepare
 from repro_torch.models.mamba2 import _ssd_chunked
@@ -117,6 +117,42 @@ def test_flash_attention_checks_its_operands():
         flash_attention(q, q.double(), q)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), q, q)
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64, 112, 128, 192, 256])
+def test_flash_plan_picks_a_kernel_by_dtype_and_head_dim(dh):
+    """float32 goes to the CUDA-core kernel at dh as it is; bfloat16 to the
+    wgmma kernel at dh padded to whole 64-column TMA boxes, with a key tile
+    that keeps Q and two stages of K and V within a block's 227 KB of
+    shared memory."""
+    assert kernel.flash_plan(torch.float32, dh) == ("flash_fwd", dh, 64)
+    name, dh_pad, key_tile = kernel.flash_plan(torch.bfloat16, dh)
+    assert name == "flash_fwd_sm90"
+    assert dh_pad % 64 == 0 and dh <= dh_pad < dh + 64
+    assert key_tile == (128 if dh_pad <= 128 else 64)
+    smem = 2 * dh_pad * (128 + 2 * 2 * key_tile) + 1024
+    assert smem <= 232448, smem
+
+
+def test_flash_plan_refuses_what_has_no_kernel():
+    with pytest.raises(ValueError, match="head dim"):
+        kernel.flash_plan(torch.bfloat16, 48)
+    with pytest.raises(TypeError, match="dtype"):
+        kernel.flash_plan(torch.float16, 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_cpu_call_counts_no_launch(dtype):
+    """A CPU tensor takes the plain version and adds to neither B7's count
+    nor its count by kernel."""
+    q, k, v = (torch.ones(1, 8, 2, 16, dtype=dtype) for _ in range(3))
+    launches = flash_attention.launches
+    by_kernel = dict(flash_attention.kernel_launches)
+    out = flash_attention(q, k, v, causal=True)
+    assert out.shape == q.shape
+    assert flash_attention.launches == launches
+    assert flash_attention.kernel_launches == by_kernel
+    assert set(by_kernel) == {"flash_fwd", "flash_fwd_sm90"}
 
 
 # ------------------------------------------------------------------- B8

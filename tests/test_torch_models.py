@@ -197,7 +197,7 @@ def _model(arch, seed=0):
     tree = jtransformer.init_params(jax.random.PRNGKey(seed), jcfg,
                                     jnp.float32)
     return jcfg, cfg, tree, lm_params_from_jax(jax.tree.map(np.asarray, tree),
-                                               cfg)
+                                               cfg, device="cpu")
 
 
 def _jforward(jcfg):
@@ -294,7 +294,7 @@ def test_init_params_has_the_reference_tree():
         shapes = jax.eval_shape(lambda: jtransformer.init_params(
             jax.random.PRNGKey(0), jcfg, jnp.float32))
         ref = lm_params_from_jax(jax.tree.map(
-            lambda s: np.zeros(s.shape, s.dtype), shapes), cfg)
+            lambda s: np.zeros(s.shape, s.dtype), shapes), cfg, device="cpu")
         gen = torch.Generator().manual_seed(0)
         lm = transformer.init_params(cfg, generator=gen, device="cpu",
                                      dtype=torch.float32)
@@ -336,6 +336,22 @@ def test_entry_points_run_on_the_card_unless_told_otherwise():
         transformer.init_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         pipeline.make_batch(cfg, configs.InputShape("t", 4, 1, "prefill"))
+
+
+def test_lm_params_from_jax_runs_on_the_card_unless_told_otherwise():
+    """Like ``init_params``, the conversion resolves no device to the card,
+    and so fails here; asked for the CPU it converts."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    jcfg, cfg = jconfigs.smoke_config("gemma-2b"), configs.smoke_config(
+        "gemma-2b")
+    shapes = jax.eval_shape(lambda: jtransformer.init_params(
+        jax.random.PRNGKey(0), jcfg, jnp.float32))
+    tree = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm_params_from_jax(tree, cfg)
+    lm = lm_params_from_jax(tree, cfg, device="cpu")
+    assert {p.device.type for p in lm.parameters()} == {"cpu"}
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
