@@ -1,8 +1,8 @@
 """Build, load and launch the attention CUDA kernels, compiled for
 ``sm_90a``: the masked forward (``csrc/mha.cu``), its two backward kernels,
 dq and dkv (``csrc/mha_bwd.cu``), and the causal flash forward of the LM
-zoo in two kernels, float32 on the CUDA cores (``csrc/flash_fwd.cu``) and
-bfloat16 on ``wgmma`` with TMA (``csrc/flash_fwd_sm90.cu``), one library
+zoo in two kernels, float32 in 3xTF32 on ``mma.sync`` (``csrc/flash_fwd.cu``)
+and bfloat16 on ``wgmma`` with TMA (``csrc/flash_fwd_sm90.cu``), one library
 each, by the shared scheme of ``kernels/_build.py``; nothing here runs when
 the module is imported."""
 from __future__ import annotations
@@ -76,7 +76,7 @@ def _backward_library() -> ctypes.CDLL:
 @functools.cache
 def _flash_library() -> ctypes.CDLL:
     lib = load_library(build_flash())
-    lib.mrsch_flash_fwd.argtypes = [_P] * 4 + [_I] * 7 + [ctypes.c_float, _P]
+    lib.mrsch_flash_fwd.argtypes = [_P] * 4 + [_I] * 8 + [ctypes.c_float, _P]
     lib.mrsch_flash_fwd.restype = ctypes.c_int
     return lib
 
@@ -151,19 +151,20 @@ def mha_backward_dkv(q, k, v, do, lse, delta, lengths) -> tuple:
 def flash_plan(dtype: torch.dtype, dh: int) -> tuple:
     """(kernel, dh_pad, key_tile) of B7 for ``dtype`` and head dim ``dh``.
 
-    float32 goes to ``flash_fwd`` (CUDA cores, full float32 products, 64
-    keys a tile, dh as it is); bfloat16 to ``flash_fwd_sm90`` (wgmma, TMA),
-    whose tiles are boxes of 64 head-dim columns, so dh is padded to
-    ``dh_pad``, a multiple of 64, by TMA's zero fill, and whose key tile is
-    128 up to dh_pad 128 and 64 beyond, to fit Q and two stages of K and V
-    in shared memory and the output in the consumers' registers.  The choice
-    is fixed by dtype, not a fallback: a bfloat16 call that cannot build or
-    launch raises."""
+    float32 goes to ``flash_fwd`` (3xTF32 on ``mma.sync``, which keeps
+    float32 accuracy; dh as it is), whose key tile is 64 up to dh 128 and
+    32 beyond, to fit the Q tile and two stages of K and V in shared
+    memory; bfloat16 to ``flash_fwd_sm90`` (wgmma, TMA), whose tiles
+    are boxes of 64 head-dim columns, so dh is padded to ``dh_pad``, a
+    multiple of 64, by TMA's zero fill, and whose key tile is 128 up to
+    dh_pad 128 and 64 beyond, to fit Q and two stages of K and V in shared
+    memory and the output in the consumers' registers.  The choice is fixed
+    by dtype, not a fallback: a call that cannot build or launch raises."""
     if dh not in FLASH_HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {dh} has no kernel; "
                          f"expected one of {FLASH_HEAD_DIMS}")
     if dtype == torch.float32:
-        return "flash_fwd", dh, 64
+        return "flash_fwd", dh, 64 if dh <= 128 else 32
     if dtype == torch.bfloat16:
         dh_pad = -(-dh // 64) * 64
         return "flash_fwd_sm90", dh_pad, 128 if dh_pad <= 128 else 64
@@ -177,11 +178,13 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k and v (B, Sk, KV, dh), one dtype, contiguous, on one device ->
     o (B, Sq, H, dh).  Two named kernels, chosen by dtype
     (``flash_plan``): float32 to ``flash_fwd``, bfloat16 to
-    ``flash_fwd_sm90``, whose TMA descriptors need 16-byte aligned
-    operands."""
+    ``flash_fwd_sm90``; both load 16-byte chunks (cp.async, TMA), so the
+    operands must be 16-byte aligned."""
     b, sq, h, dh = q.shape
     sk, kv = k.shape[1], k.shape[2]
     name, dh_pad, key_tile = flash_plan(q.dtype, dh)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: operands must be 16-byte aligned")
     o = torch.empty_like(q)
     where = f"B={b} Sq={sq} Sk={sk} H={h} KV={kv} dh={dh}"
     with torch.cuda.device(q.device):
@@ -189,11 +192,9 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lib = _flash_library()
             err = lib.mrsch_flash_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b,
-                sq, sk, h, kv, dh, int(causal), dh ** -0.5, _stream(q.device))
+                sq, sk, h, kv, dh, key_tile, int(causal), dh ** -0.5,
+                _stream(q.device))
         else:
-            if any(t.data_ptr() % 16 for t in (q, k, v)):
-                raise ValueError("flash_attention: bfloat16 operands must be "
-                                 "16-byte aligned for TMA")
             lib = _flash_sm90_library()
             err = lib.mrsch_flash_fwd_sm90(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b,

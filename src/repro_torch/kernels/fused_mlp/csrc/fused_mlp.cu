@@ -3,37 +3,58 @@
 // Replaces the TPU kernel `fused_mlp_layer` (`_fused_mlp_kernel`) in
 // src/repro/kernels/fused_mlp/kernel.py.  Shapes: x (M, K), W (K, N) with N
 // contiguous (the JAX package's (in, out) layout), b (N,), y (M, N); float32
-// or bfloat16 in and out, float32 accumulation, bias + activation in the
-// epilogue.
+// or bfloat16 in and out, float32 accumulation on the CUDA cores, bias +
+// activation in the epilogue.  The TPU design (128x256x512 MXU tiles, W
+// padded to block multiples on every call) does not carry over.  Two
+// kernels, chosen by M (kernel.forward_plan):
 //
-// What bounds it: the bytes of W.  The DFP network that serves decisions
-// runs it at skinny M (1..16, the padded service batch) with K up to 11410
-// and N up to 4000, so every forward streams W once: 182.6 MB for the first
-// state layer alone, against about 1.5 GFLOP at M = 16, far below the card's
-// ridge point.  The TPU design (128x256x512 MXU tiles, W padded to block
-// multiples on every call) does not carry over; this one:
-//
-//  * reads W exactly once per M tile, never padded: each lane loads four
-//    consecutive columns of a row (one 16-byte load for float32), so a warp
-//    reads 512 contiguous bytes of a row; ragged N and M edges are masked in
-//    the kernel;
+// fused_mlp_fwd_kernel, M <= 16 (the decision service's padded batches).
+// What bounds it: the bytes of W.  The DFP network runs it with K up to
+// 11410 and N up to 4000, so every forward streams W once: 182.6 MB for
+// the first state layer alone, against about 1.5 GFLOP at M = 16, far
+// below the card's ridge point.  So it:
+//  * reads W exactly once, never padded: each lane loads four consecutive
+//    columns of a row (one 16-byte load for float32), so a warp reads 512
+//    contiguous bytes of a row; ragged N and M edges are masked in the
+//    kernel;
 //  * keeps all M rows of the output tile in registers (MT x 4 per lane), so
 //    one W load feeds MT * 4 FMAs;
 //  * stages x in shared memory as float32, 256 rows of K at a time; the
 //    eight warps of a block share one column tile and take 4 consecutive K
 //    rows each per step, so x comes out of shared memory as float4
-//    broadcasts and each lane keeps four W loads in flight;
-//  * splits K across blocks (grid.y) when the column tiles alone cannot fill
-//    the card (N = 4000 gives 32 tiles of 128 columns for 132 SMs); the
-//    float32 partial sums (splits x M x N, a few MB that stay in L2) are
-//    added in a fixed order by a second small kernel that applies bias and
-//    activation, so results do not depend on scheduling.  With one split the
-//    epilogue runs in the main kernel.
-//  * M above 16 runs as several M tiles (grid.z), each re-reading W: correct,
-//    not fast.
+//    broadcasts and each lane keeps four W loads in flight.
 //
-// Plain C interface for ctypes; the wrapper (kernel.py) picks the split,
-// allocates y and the partial buffer, and raises on a non-zero return.
+// fused_mlp_fwd_m64_kernel, M > 16 (the device engine's and training's
+// M = 64, the attention encoder's M up to 8,256).  What bounds it: the
+// float32 FMA rate.  At M = 64 the 11410 x 4000 layer does 5.8 GFLOP on
+// 182.6 MB of W: 87 us at 67 TFLOP/s against 55 us of bytes.  The M <= 16
+// kernel would run four 16-row tiles there, each streaming W again (730
+// MB).  This one:
+//  * gives a block 64 rows of x and 128 columns of W, so W is read once for
+//    up to 64 rows; 256 threads, thread (warp w, lane) holding rows
+//    8w..8w+7 and columns 4 lane..4 lane+3 (an 8 x 4 micro-tile): per 4
+//    rows of K, eight float4 broadcasts of x and four float4 loads of W
+//    from shared memory feed 128 FMAs;
+//  * streams x and W through a three-stage cp.async ring of 32 rows of K
+//    (the widest 16, 8 or 4-byte copy the rows are aligned to; bfloat16
+//    staged as it is and widened as it leaves shared memory); a stage
+//    holds only the rows of K the layer has, rounded up to 4 (zero past
+//    K), so K = 4 stages 4 rows, not 32 or 256; rows past M and columns
+//    past N are zero.
+//
+// Both kernels split K across blocks (grid.y) when the column tiles and M
+// tiles alone cannot fill the card (N = 4000 gives 32 tiles of 128 columns
+// for 132 SMs): the M > 16 kernel into as many ranges as one wave of two
+// blocks per SM holds (8 for that layer: 256 blocks), since a partial
+// second wave costs a whole block's time.  The float32 partial sums
+// (splits x M x N, a few MB that stay in L2) are added in a fixed order by
+// a second small kernel that applies bias and activation, so results do
+// not depend on scheduling.  With one split the epilogue runs in the main
+// kernel.
+//
+// Plain C interface for ctypes; the wrapper (kernel.py) picks the kernel,
+// the split and the copy widths, allocates y and the partial buffer, and
+// raises on a non-zero return.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -230,6 +251,229 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------------------- M > 16
+constexpr int kTileM64 = 64;   // rows of x per block
+constexpr int kRingK = 32;     // rows of K a ring stage holds
+constexpr int kRingStages = 3;
+
+constexpr int kStageElems = kTileM64 * kRingK + kRingK * kTileN;  // x, W
+
+// cp.async of kBytes (4, 8 or 16); src_bytes = 0 fills the chunk with zeros.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
+                                         int src_bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(gmem), "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+                 "l"(gmem), "n"(kBytes), "r"(src_bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Rows [r0, r0 + rows) by columns [c0, c0 + kCols) of a (.., ld) operand
+// into shared rows of kCols elements, zero where the row is at or past
+// r_end or the column at or past c_end, in chunks of `bytes` (16, 8 or 4:
+// ld, c0 and c_end are multiples of the chunk, so a chunk lies wholly
+// inside or outside); bytes = 0 stages element by element.
+template <typename T, int kCols>
+__device__ __forceinline__ void stage_box(T* dst, const T* __restrict__ src,
+                                          long long ld, int r0, int rows,
+                                          int r_end, int c0, int c_end,
+                                          int bytes, int tid) {
+  if (bytes == 0) {
+    for (int e = tid; e < rows * kCols; e += kThreads) {
+      const int r = e / kCols, c = e % kCols;
+      const bool live = r0 + r < r_end && c0 + c < c_end;
+      dst[r * kCols + c] = live ? src[(r0 + r) * ld + c0 + c]
+                                : from_f32<T>(0.f);
+    }
+    return;
+  }
+  const int per = bytes / static_cast<int>(sizeof(T));  // elements a chunk
+  const int shift = __ffs(kCols / per) - 1;              // log2 chunks a row
+  for (int e = tid; e < (rows << shift); e += kThreads) {
+    const int r = e >> shift, c = (e & ((1 << shift) - 1)) * per;
+    const bool live = r0 + r < r_end && c0 + c < c_end;
+    const T* from = live ? src + (r0 + r) * ld + c0 + c : src;
+    T* to = dst + r * kCols + c;
+    const int n = live ? bytes : 0;
+    if (bytes == 16)
+      cp_async<16>(to, from, n);
+    else if (bytes == 8)
+      cp_async<8>(to, from, n);
+    else
+      cp_async<4>(to, from, n);
+  }
+}
+
+// Four consecutive elements of shared memory as float32.
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 lds4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// acc += x[rows][kk, kk + 4) W[kk, kk + 4)[cols]: eight float4 broadcasts
+// of x (the warp's rows) and four float4 loads of W feed 128 FMAs.
+template <typename T>
+__device__ __forceinline__ void m64_k4(float (&acc)[8][4], const T* xs,
+                                       const T* ws, int kk, int warp,
+                                       int lane) {
+  float4 xv[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) xv[i] = lds4(xs + (8 * warp + i) * kRingK + kk);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const float4 wv = lds4(ws + (kk + u) * kTileN + 4 * lane);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float xr = u == 0 ? xv[i].x : u == 1 ? xv[i].y
+                     : u == 2 ? xv[i].z : xv[i].w;
+      acc[i][0] = fmaf(xr, wv.x, acc[i][0]);
+      acc[i][1] = fmaf(xr, wv.y, acc[i][1]);
+      acc[i][2] = fmaf(xr, wv.z, acc[i][2]);
+      acc[i][3] = fmaf(xr, wv.w, acc[i][3]);
+    }
+  }
+}
+
+// grid = (ceil(N / 128), splits, ceil(M / 64)); block = 256 threads.
+// Split s covers K rows [s * chunk, min(K, (s + 1) * chunk)); chunk is a
+// multiple of kRingK.
+template <typename T, bool kFused>
+__global__ void __launch_bounds__(kThreads, 2)
+    fused_mlp_fwd_m64_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                             const T* __restrict__ b, T* __restrict__ y,
+                             float* __restrict__ partial, int M, int K, int N,
+                             int chunk, int x_bytes, int w_bytes, int vec,
+                             int act, float slope) {
+  extern __shared__ __align__(16) unsigned char m64_smem[];
+  T* ring = reinterpret_cast<T*>(m64_smem);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n0 = blockIdx.x * kTileN;
+  const int split = blockIdx.y;
+  const int m0 = blockIdx.z * kTileM64;
+  const int k_begin = split * chunk;
+  const int k_end = min(K, k_begin + chunk);
+  const int steps = (k_end - k_begin + kRingK - 1) / kRingK;
+
+  auto stage = [&](int step) {
+    T* xs = ring + (step % kRingStages) * kStageElems;
+    T* ws = xs + kTileM64 * kRingK;
+    const int k0 = k_begin + step * kRingK;
+    const int kt = (min(kRingK, k_end - k0) + 3) & ~3;
+    stage_box<T, kRingK>(xs, x, K, m0, kTileM64, M, k0, k_end, x_bytes,
+                         tid);
+    stage_box<T, kTileN>(ws, w, N, k0, kt, k_end, n0, N, w_bytes, tid);
+  };
+
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kRingStages - 1; ++s) {
+    if (s < steps) stage(s);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kRingStages - 2>();
+    __syncthreads();   // this step's stage is in; the last step's is free
+    if (step + kRingStages - 1 < steps) stage(step + kRingStages - 1);
+    cp_async_commit();
+    const T* xs = ring + (step % kRingStages) * kStageElems;
+    const T* ws = xs + kTileM64 * kRingK;
+    const int k0 = k_begin + step * kRingK;
+    const int kt = (min(kRingK, k_end - k0) + 3) & ~3;
+    if (kt == kRingK) {
+#pragma unroll
+      for (int kk = 0; kk < kRingK; kk += 4)
+        m64_k4<T>(acc, xs, ws, kk, warp, lane);
+    } else {
+#pragma unroll 1
+      for (int kk = 0; kk < kt; kk += 4)
+        m64_k4<T>(acc, xs, ws, kk, warp, lane);
+    }
+  }
+
+  const int c = n0 + 4 * lane;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + 8 * warp + i;
+    if (m >= M) break;
+    if (kFused) {
+      T* out = y + static_cast<long long>(m) * N;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (c + j < N)
+          out[c + j] = from_f32<T>(activate(acc[i][j] + to_f32(b[c + j]), act,
+                                            slope));
+    } else {
+      float* out = partial + (static_cast<long long>(split) * M + m) * N;
+      if (vec && c < N) {
+        *reinterpret_cast<float4*>(out + c) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c + j < N) out[c + j] = acc[i][j];
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_m64(const T* x, const T* w, const T* b, T* y,
+                       float* partial, int M, int K, int N, int splits,
+                       int chunk, int x_bytes, int w_bytes, int vec, int act,
+                       float slope, cudaStream_t stream) {
+  constexpr int bytes =
+      kRingStages * kStageElems * static_cast<int>(sizeof(T));
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fused_mlp_fwd_m64_kernel<T, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(fused_mlp_fwd_m64_kernel<T, false>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 bytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid((N + kTileN - 1) / kTileN, splits,
+                  (M + kTileM64 - 1) / kTileM64);
+  if (splits == 1)
+    fused_mlp_fwd_m64_kernel<T, true><<<grid, kThreads, bytes, stream>>>(
+        x, w, b, y, partial, M, K, N, chunk, x_bytes, w_bytes, vec, act,
+        slope);
+  else
+    fused_mlp_fwd_m64_kernel<T, false><<<grid, kThreads, bytes, stream>>>(
+        x, w, b, y, partial, M, K, N, chunk, x_bytes, w_bytes, vec, act,
+        slope);
+  return cudaSuccess;
+}
+
 // y[i] = act(sum_s partial[s][i] + b[i % N]), summed in split order.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -282,19 +526,26 @@ void launch_tile_m(const T* x, const T* w, const T* b, T* y, float* partial,
 }
 
 template <typename T>
-void launch(const void* x, const void* w, const void* b, void* y,
-            float* partial, int M, int K, int N, int splits, int chunk,
-            int vec, int act, float slope, cudaStream_t stream) {
+cudaError_t launch(const void* x, const void* w, const void* b, void* y,
+                   float* partial, int M, int K, int N, int splits, int chunk,
+                   int m64, int x_bytes, int w_bytes, int vec, int act,
+                   float slope, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   const T* bt = static_cast<const T*>(b);
   T* yt = static_cast<T*>(y);
-  if (vec)
+  if (m64) {
+    const cudaError_t err =
+        launch_m64<T>(xt, wt, bt, yt, partial, M, K, N, splits, chunk,
+                      x_bytes, w_bytes, vec, act, slope, stream);
+    if (err != cudaSuccess) return err;
+  } else if (vec) {
     launch_tile_m<T, true>(xt, wt, bt, yt, partial, M, K, N, splits, chunk,
                            act, slope, stream);
-  else
+  } else {
     launch_tile_m<T, false>(xt, wt, bt, yt, partial, M, K, N, splits, chunk,
                             act, slope, stream);
+  }
   if (splits > 1) {
     const long long total = static_cast<long long>(M) * N;
     const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) /
@@ -302,27 +553,34 @@ void launch(const void* x, const void* w, const void* b, void* y,
     splitk_epilogue_kernel<T><<<blocks, kThreads, 0, stream>>>(
         partial, bt, yt, M, N, splits, act, slope);
   }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launches (0 on success).
+// m64 = 0 runs the M <= 16 kernel (fused_mlp_fwd_kernel), m64 = 1 the M > 16
+// one (fused_mlp_fwd_m64_kernel), which stages x and W by cp.async in chunks
+// of x_bytes and w_bytes (16, 8, 4, or 0: element by element).  Returns
+// cudaGetLastError() after the launches (0 on success).
 int mrsch_fused_mlp_forward(const void* x, const void* w, const void* b,
                             void* y, void* partial, int M, int K, int N,
-                            int splits, int chunk, int vec, int act,
-                            float slope, int dtype, void* stream) {
+                            int splits, int chunk, int m64, int x_bytes,
+                            int w_bytes, int vec, int act, float slope,
+                            int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(partial);
+  cudaError_t err;
   if (dtype == kFloat32)
-    launch<float>(x, w, b, y, p, M, K, N, splits, chunk, vec, act, slope, s);
+    err = launch<float>(x, w, b, y, p, M, K, N, splits, chunk, m64, x_bytes,
+                        w_bytes, vec, act, slope, s);
   else if (dtype == kBFloat16)
-    launch<__nv_bfloat16>(x, w, b, y, p, M, K, N, splits, chunk, vec, act,
-                          slope, s);
+    err = launch<__nv_bfloat16>(x, w, b, y, p, M, K, N, splits, chunk, m64,
+                                x_bytes, w_bytes, vec, act, slope, s);
   else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
 }
 
 const char* mrsch_cuda_error_string(int code) {

@@ -24,9 +24,12 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel geometry, as fixed in csrc/fused_mlp.cu.
 TILE_N = 128            # output columns per block
-MAX_TILE_M = 16         # rows of x per block
+MAX_TILE_M = 16         # rows of x per block of the M <= 16 kernel
+M64_TILE_M = 64         # rows of x per block of the M > 16 kernel
+M64_STEP_K = 32         # rows of K a ring stage of the M > 16 kernel holds
 MIN_SPLIT_ROWS = 64     # a K split shorter than this costs more than it hides
 BLOCKS_PER_SM = 4       # blocks the split aims to put in flight per SM
+M64_BLOCKS_PER_SM = 2   # blocks of the M > 16 kernel an SM holds at once
 
 # Backward geometry, as fixed in csrc/fused_mlp_bwd.cu.
 DGRAD_TILE = 64         # rows of M and columns of K per dgrad block
@@ -51,7 +54,7 @@ def build_backward() -> BuildInfo:
 def _library() -> ctypes.CDLL:
     lib = load_library(build())
     fn = lib.mrsch_fused_mlp_forward
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
@@ -76,30 +79,47 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def split_plan(m: int, k: int, n: int, sm_count: int) -> tuple:
-    """(splits, chunk): K is cut into ``splits`` ranges of ``chunk`` rows.
+def forward_plan(m: int, k: int, n: int, sm_count: int) -> tuple:
+    """(kernel, tile_m, splits, chunk) of the forward for x (m, k), W (k, n).
 
-    The column tiles times the M tiles give the blocks the layer has
-    without a split; K is split until about ``BLOCKS_PER_SM`` blocks per
-    SM are in flight, but never into ranges shorter than
-    ``MIN_SPLIT_ROWS``.  With one split the kernel applies the epilogue
-    itself; otherwise a second pass adds the splits' partial sums.
-    """
-    tiles = -(-n // TILE_N) * -(-m // MAX_TILE_M)
-    want = max(1, -(-BLOCKS_PER_SM * sm_count // tiles))
-    splits = max(1, min(want, k // MIN_SPLIT_ROWS, 65535))
-    chunk = -(-k // splits)
-    return -(-k // chunk), chunk
+    M <= 16 (the decision service's batches) runs ``fused_mlp_fwd_kernel``,
+    which holds all M rows in registers and streams W once; M > 16 runs
+    ``fused_mlp_fwd_m64_kernel``, whose blocks take 64 rows of x each, so W
+    is read once per 64 rows, not once per 16.  The column tiles times the
+    M tiles give the blocks the layer has without a split; K is cut into
+    ``splits`` ranges of ``chunk`` rows, never shorter than
+    ``MIN_SPLIT_ROWS``.  For M <= 16, until about ``BLOCKS_PER_SM`` blocks
+    per SM are in flight.  For M > 16, into as many ranges as one wave of
+    ``M64_BLOCKS_PER_SM`` blocks per SM holds (a second, partial wave
+    would cost a whole block's time), each a whole number of its 32-row
+    ring stages, and not at all where the tiles alone reach half the SMs
+    (the encoder's 129 tiles: the pass that adds the partial sums would
+    cost more than the split saves).  With one split the kernel applies
+    the epilogue itself; otherwise a second pass adds the splits' partial
+    sums in a fixed order."""
+    if m <= MAX_TILE_M:
+        tiles = -(-n // TILE_N)
+        want = max(1, -(-BLOCKS_PER_SM * sm_count // tiles))
+        splits = max(1, min(want, k // MIN_SPLIT_ROWS, 65535))
+        chunk = -(-k // splits)
+        return "fused_mlp_fwd", MAX_TILE_M, -(-k // chunk), chunk
+    tiles = -(-n // TILE_N) * -(-m // M64_TILE_M)
+    want = (1 if 2 * tiles > sm_count
+            else min(65535, M64_BLOCKS_PER_SM * sm_count // tiles))
+    chunk = max(MIN_SPLIT_ROWS, -(-k // want)) if want > 1 else k
+    chunk = -(-chunk // M64_STEP_K) * M64_STEP_K
+    return "fused_mlp_fwd_m64", M64_TILE_M, -(-k // chunk), chunk
 
 
 def fused_mlp_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                       activation: str, slope: float) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors the caller has checked: x (M, K),
-    w (K, N), b (N,), one dtype, contiguous, on one device."""
+    """Launch the kernel ``forward_plan`` picks on CUDA tensors the caller
+    has checked: x (M, K), w (K, N), b (N,), one dtype, contiguous, on one
+    device."""
     m, k = x.shape
     n = w.shape[1]
     device = x.device
-    splits, chunk = split_plan(m, k, n, _sm_count(device.index))
+    name, _, splits, chunk = forward_plan(m, k, n, _sm_count(device.index))
     y = torch.empty((m, n), dtype=x.dtype, device=device)
     partial = (torch.empty((splits, m, n), dtype=torch.float32, device=device)
                if splits > 1 else None)
@@ -110,15 +130,17 @@ def fused_mlp_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         err = lib.mrsch_fused_mlp_forward(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
             partial.data_ptr() if partial is not None else None,
-            m, k, n, splits, chunk, vec, ACTIVATIONS.index(activation),
-            float(slope), DTYPES[x.dtype], stream)
-    check_launch(lib, "fused_mlp", err, f"M={m} K={k} N={n} splits={splits}")
+            m, k, n, splits, chunk, int(name == "fused_mlp_fwd_m64"),
+            _copy_bytes(k, x), _copy_bytes(n, w), vec,
+            ACTIVATIONS.index(activation), float(slope), DTYPES[x.dtype],
+            stream)
+    check_launch(lib, name, err, f"M={m} K={k} N={n} splits={splits}")
     return y
 
 
 def dgrad_split_plan(m: int, k: int, n: int, sm_count: int) -> tuple:
     """(splits, chunk) of the dgrad: N is cut into ``splits`` ranges of
-    ``chunk`` columns (a multiple of ``DGRAD_STEP_N``), as ``split_plan``
+    ``chunk`` columns (a multiple of ``DGRAD_STEP_N``), as ``forward_plan``
     cuts K for the forward, until about ``BLOCKS_PER_SM`` blocks per SM are
     in flight, never into ranges shorter than ``MIN_SPLIT_COLS``."""
     tiles = -(-k // DGRAD_TILE) * -(-m // DGRAD_TILE)

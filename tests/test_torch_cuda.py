@@ -61,6 +61,50 @@ def test_kernel_rows_do_not_depend_on_the_batch(cuda):
                                full[:width])
 
 
+# M > 16 runs the 64-row kernel (kernel.forward_plan): the DFP layers at
+# ragged M around the device engine's and training's 64, and the attention
+# encoder's token layers, at M up to 64 x 129.
+FWD_SHAPES = [(11410, 4000), (4000, 1000), (1000, 512), (2, 128), (128, 128),
+              (768, 512), (512, 12), (512, 120), (4, 64), (64, 64),
+              (64, 128), (128, 64)]
+
+
+@pytest.mark.parametrize("k,n", FWD_SHAPES)
+@pytest.mark.parametrize("m", [17, 33, 63, 64, 65, 128, 8255, 8256])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_m64_kernel_matches_plain_version(cuda, m, k, n, dtype, tol):
+    from repro_torch.kernels.fused_mlp import kernel
+    assert kernel.forward_plan(m, k, n, 132)[0] == "fused_mlp_fwd_m64"
+    act = ACTIVATIONS[(m + k + n) % len(ACTIVATIONS)]
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=gen, device=cuda).to(dtype)
+    w = (torch.randn(k, n, generator=gen, device=cuda) / k ** 0.5).to(dtype)
+    b = torch.randn(n, generator=gen, device=cuda).to(dtype)
+    launches = fused_mlp.launches
+    with torch.no_grad():
+        out = fused_mlp(x, w, b, activation=act)
+        ref = fused_mlp_layer_ref(x, w, b, act)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches == launches + 1
+    assert out.dtype == dtype and out.shape == (m, n)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 11410, 4000), (65, 4000, 1000),
+                                   (17, 1000, 512)])
+def test_m64_kernel_repeats_bit_for_bit(cuda, m, k, n):
+    """Two launches with a K split give the same bits: the splits' partial
+    sums are added in a fixed order, not in the blocks' order."""
+    from repro_torch.kernels.fused_mlp import kernel
+    assert kernel.forward_plan(m, k, n, 132)[2] > 1
+    x, w, b = _inputs(m, k, n, seed=m + n, device=cuda)
+    with torch.no_grad():
+        first = fused_mlp(x, w, b)
+        for _ in range(3):
+            assert torch.equal(fused_mlp(x, w, b), first)
+
+
 def test_cuda_wrapper_rejects_and_never_falls_back(cuda):
     x, w, b = _inputs(4, 64, 32, seed=1, device=cuda)
     with torch.no_grad():
@@ -541,6 +585,18 @@ def test_flash_kernel_matches_plain_version(cuda, b, s, h, kv, dh, dtype,
         torch.testing.assert_close(
             out.transpose(1, 2).reshape(b * h, s, dh), dense, rtol=tol,
             atol=tol)
+
+
+def test_flash_float32_kernel_at_zamba2_7b_shape(cuda):
+    """B7 in float32 (3xTF32 on mma.sync) at zamba2-7b's shared-attention
+    shape, causal: 64 key tiles accumulate in the last rows, at the
+    reference's 2e-4."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    q, k, v = _flash_case(1, 4096, 4096, 32, 32, 112, torch.float32, 7, cuda)
+    out = flash_attention(q, k, v, causal=True)
+    torch.testing.assert_close(out, flash_attention_ref(q, k, v, True),
+                               rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("sq,sk", [(100, 260), (260, 100), (1, 300)])

@@ -90,10 +90,48 @@ def test_rejects_what_the_kernel_does_not_take():
                                    (16, 4000, 1000), (16, 1000, 512),
                                    (16, 2, 128), (37, 512, 120), (16, 63, 12)])
 def test_split_plan_covers_k(m, k, n):
-    splits, chunk = kernel.split_plan(m, k, n, sm_count=132)
+    _, _, splits, chunk = kernel.forward_plan(m, k, n, sm_count=132)
     assert 1 <= splits <= 65535
     assert (splits - 1) * chunk < k <= splits * chunk   # no empty split
     assert splits == 1 or chunk >= kernel.MIN_SPLIT_ROWS
+
+
+@pytest.mark.parametrize("m", [1, 2, 8, 16, 17, 33, 64, 65, 128, 8192,
+                               8256])
+def test_forward_plan_picks_a_kernel_by_m(m):
+    """M <= 16 keeps the kernel that holds all rows in registers; M > 16
+    goes to the kernel whose blocks take 64 rows, so W is read once per 64
+    rows (one M tile at M = 64, 129 at the encoder's 8,256)."""
+    name, tile_m, _, _ = kernel.forward_plan(m, 11410, 4000, sm_count=132)
+    if m <= 16:
+        assert (name, tile_m) == ("fused_mlp_fwd", kernel.MAX_TILE_M)
+    else:
+        assert (name, tile_m) == ("fused_mlp_fwd_m64", kernel.M64_TILE_M)
+        assert -(-m // tile_m) == -(-m // 64)
+
+
+@pytest.mark.parametrize("m", [17, 64, 65, 8256])
+@pytest.mark.parametrize("k,n", [(11410, 4000), (4000, 1000), (1000, 512),
+                                 (2, 128), (512, 12), (4, 64), (64, 64),
+                                 (64, 128), (128, 64), (63, 7)])
+def test_forward_plan_split_covers_k(m, k, n):
+    """The M > 16 kernel's K split covers K with no empty range, in whole
+    32-row ring stages, and fills one wave of the card where the tiles do
+    not: the 11410 x 4000 layer at M = 64 (32 column tiles) gets 8 ranges,
+    256 blocks for 2 x 132 slots; where the tiles reach half the SMs, K is
+    not split."""
+    name, tile_m, splits, chunk = kernel.forward_plan(m, k, n, sm_count=132)
+    assert name == "fused_mlp_fwd_m64"
+    assert 1 <= splits <= 65535 and chunk % kernel.M64_STEP_K == 0
+    assert (splits - 1) * chunk < k <= splits * chunk   # no empty split
+    assert splits == 1 or chunk >= kernel.MIN_SPLIT_ROWS
+    tiles = -(-n // kernel.TILE_N) * -(-m // tile_m)
+    if splits > 1:      # never more blocks than one wave holds
+        assert tiles * splits <= kernel.M64_BLOCKS_PER_SM * 132
+    if 2 * tiles > 132:  # the encoder's 129 tiles: no split
+        assert splits == 1
+    if (m, k, n) == (64, 11410, 4000):
+        assert (splits, chunk) == (8, 1440)
 
 
 # ------------------------------------------------------------- backward

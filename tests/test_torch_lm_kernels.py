@@ -121,17 +121,33 @@ def test_flash_attention_checks_its_operands():
 
 @pytest.mark.parametrize("dh", [16, 32, 64, 112, 128, 192, 256])
 def test_flash_plan_picks_a_kernel_by_dtype_and_head_dim(dh):
-    """float32 goes to the CUDA-core kernel at dh as it is; bfloat16 to the
-    wgmma kernel at dh padded to whole 64-column TMA boxes, with a key tile
-    that keeps Q and two stages of K and V within a block's 227 KB of
-    shared memory."""
-    assert kernel.flash_plan(torch.float32, dh) == ("flash_fwd", dh, 64)
+    """float32 goes to the 3xTF32 kernel at dh as it is, with 64-key tiles
+    up to dh 128 and 32 beyond; bfloat16 to the wgmma kernel at dh padded
+    to whole 64-column TMA boxes, with a key tile that keeps Q and two
+    stages of K and V within a block's 227 KB of shared memory."""
+    assert kernel.flash_plan(torch.float32, dh) == (
+        "flash_fwd", dh, 64 if dh <= 128 else 32)
     name, dh_pad, key_tile = kernel.flash_plan(torch.bfloat16, dh)
     assert name == "flash_fwd_sm90"
     assert dh_pad % 64 == 0 and dh <= dh_pad < dh + 64
     assert key_tile == (128 if dh_pad <= 128 else 64)
     smem = 2 * dh_pad * (128 + 2 * 2 * key_tile) + 1024
     assert smem <= 232448, smem
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64, 112, 128, 192, 256])
+def test_flash_plan_routes_float32_to_flash_fwd(dh):
+    """Every head dim's float32 call goes to ``flash_fwd``, never to the
+    bfloat16 kernel, and its geometry fits a block: the Q tile (rows
+    padded by 8 floats) and two stages of K (by 8) and V (by 4) of
+    ``key_tile`` keys within 227 KB of shared memory; 8 warps (128 query
+    rows) share a tile up to dh 128, 4 warps beyond."""
+    name, dh_pad, key_tile = kernel.flash_plan(torch.float32, dh)
+    assert (name, dh_pad) == ("flash_fwd", dh)
+    q_rows = 128 if dh <= 128 else 64
+    smem = 4 * (2 * key_tile * ((dh + 8) + (dh + 4)) + q_rows * (dh + 8))
+    assert smem <= 232448, smem
+    assert key_tile % 8 == 0 and dh % 16 == 0
 
 
 def test_flash_plan_refuses_what_has_no_kernel():
