@@ -11,7 +11,7 @@ prints its wall seconds:
 2. build: compile the eight kernel libraries (fused MLP, its backward,
    window pack, masked attention, its backward, causal flash attention in
    float32 (3xTF32 on mma.sync) and in bfloat16 (wgmma, TMA), chunked
-   SSD) with nvcc (sm_90a),
+   SSD in three kernels) with nvcc (sm_90a),
    one nvcc per source, started together; then phase 14's parity checks;
 3. fused-MLP parity: the kernel against its plain PyTorch version at every
    DFP layer shape, M in {1, 2, 4, 8, 16} (the M <= 16 kernel) and {17, 33,
@@ -48,7 +48,8 @@ prints its wall seconds:
    and at the attention encoder's (K, N) in {(4, 64), (64, 64), (64, 128),
    (128, 64)}, M in {8192, 8255, 8256} (the wgrad split along M), all four
    activations, float32 (rtol 1e-3, atol 1e-4) and bfloat16 (2e-2); two
-   wgrad launches on the same inputs give bit-equal dW and db;
+   launches on the same inputs give bit-equal dx (dgrad) and dW and db
+   (wgrad);
 10. training path: a second paper-width agent (paper defaults: batch 64,
    64 gradient steps per episode, lr 1e-4, clip 10) runs ``train_agent``
    over three full-scale S1 traces; exactly 13 forward, 10 dgrad and 13
@@ -91,17 +92,20 @@ prints its wall seconds:
    against the exact recurrence and its plain chunked version over the
    reference tests' grid and the LM configs' (P, N, chunk), float32
    (1e-3) and bfloat16 (5e-2), and with float32 y against the plain
-   version at 1e-4 for both (on the LM paths' operands too);
+   version at 1e-4 for both (on the LM paths' operands too), two calls
+   bit-equal;
 15. LM prefill: zamba2-7b at full width and depth (6.96 B parameters,
    random from seed 0), ``make_prefill_step`` on both backends in
    float32 at B = 2 of S = 4096 and S = 3000: exactly 13 B7 and 81 B8
-   launches per forward, last-token logits within 1e-3 of the largest
+   launches per forward (81 of each of B8's three kernels), last-token
+   logits within 1e-3 of the largest
    and argmax equal, B7 and B8 held against their plain versions (B8
    also the exact recurrence) on the first shared block's and Mamba2
    layer's operands, and the float32 step's wall and device time; then in
    bfloat16 the step's wall and device time, a
    profiled breakdown by kernel group, and both kernels timed on the
-   step's operands beside their bounds, plain versions and (B7) SDPA
+   step's operands (B8 also pass by pass, in both dtypes) beside their
+   bounds, plain versions and (B7) SDPA
    with ``is_causal`` (the library yardstick, which the port never calls);
 16. LM widths: gemma-2b (dh 256, MQA; depth cut to 2 of 18 layers) and
    mamba2-1.3b (N 128; 4 of 48) at full width through the checks of 15.
@@ -167,10 +171,13 @@ ENCODER_ACT = {(4, 64): "linear", (64, 64): "linear",
 # Kernels before their redesign, quoted from PERF.md section 6 (NVIDIA H100
 # 80GB HBM3, 700 W) on a log line of their own, not measured here: B3
 # summed over the MLP train step's 13 layers; B1 over the 13 DFP layers at
-# M = 64; B7 at B = 2, S = 4096, 32 heads of 112, causal, in bfloat16
-# (flash_attention) and float32 (flash_attention_f32).
+# M = 64; B2 over the MLP train step's 10 layers; B7 at B = 2, S = 4096, 32
+# heads of 112, causal, in bfloat16 (flash_attention) and float32
+# (flash_attention_f32); B8 at B = 2, S = 4096, 112 heads of 64, N 64,
+# chunk 256, bfloat16 in and float32 y.
 PRIOR_MS = {"fused_mlp_wgrad": 0.3603, "fused_mlp_forward": 0.5125,
-            "flash_attention": 9.7836, "flash_attention_f32": 9.6996}
+            "fused_mlp_dgrad": 0.1480, "flash_attention": 9.7836,
+            "flash_attention_f32": 9.6996, "ssd": 4.0991}
 TRAIN_SEEDS = (1, 2, 3)          # full-scale S1 traces of the training path
 WP_SOURCE = "src/repro_torch/kernels/window_pack/csrc/window_pack.cu"
 WP_REPLACES = "src/repro/kernels/window_pack/kernel.py:37"
@@ -224,9 +231,11 @@ SSD_GRID = [(1, 64, 2, 16, 8, 16, 2), (2, 100, 3, 16, 8, 32, 3),
             (1, 256, 4, 32, 16, 64, 4), (1, 600, 8, 64, 64, 256, 1),
             (1, 600, 8, 64, 128, 256, 1)]
 SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
-# B8 with float32 y against its plain chunked version: both widen x, B and
-# C and do all their arithmetic in float32, so they differ only in the
-# order of their sums, whatever x's dtype.
+# B8 with float32 y against its plain chunked version, whatever x's dtype:
+# the plain version computes in float32; the kernels' bfloat16 products
+# take their float32 operands in three bfloat16 parts (about 24 bits) and
+# float32 ones run in 3xTF32, so the two differ by more than the order of
+# their sums, still well inside this limit (the measured error is logged).
 SSD_PLAIN_TOL = 1e-4
 # The LM prefill: zamba2-7b at B = 2, S = 4096 (past the dense threshold
 # of 2048; a multiple of the chunk) and S = 3000 (keys masked past Sk in
@@ -1215,11 +1224,14 @@ def grad_bound_ms(kind: str, m: int, k: int, n: int) -> tuple:
     """(bytes, operations) times of one float32 dgrad or wgrad, in ms: g
     and y (M, N) and the third operand (W (K, N) or x (M, K)) read once,
     the results (dx (M, K), or dW (K, N) and db (N,)) written once; 2MKN
-    flops (and the wgrad's MN for db)."""
+    flops (and the wgrad's MN for db) at each kernel's float32 route: the
+    dgrad's 3xTF32 (three TF32 products a product at 495 TFLOP/s), the
+    wgrad's FMAs on the CUDA cores (67 TFLOP/s)."""
     nbytes = 2 * m * n + k * n + m * k + (n if kind == "wgrad" else 0)
     flops = 2.0 * m * k * n + (m * n if kind == "wgrad" else 0)
     byte_s = 4.0 * nbytes / PEAK_BYTES_PER_S
-    flop_s = flops / PEAK_F32_FLOP_PER_S
+    flop_s = (3 * flops / PEAK_TF32_FLOP_PER_S if kind == "dgrad"
+              else flops / PEAK_F32_FLOP_PER_S)
     return byte_s * 1e3, flop_s * 1e3
 
 
@@ -1296,6 +1308,10 @@ def phase_backward_parity(agent) -> dict:
                         raise AssertionError(f"[backward parity] wgrad "
                                              f"{what}: two launches differ")
                     dx = fused_mlp_dgrad(g, y, w, activation=act)
+                    if not torch.equal(dx, fused_mlp_dgrad(g, y, w,
+                                                           activation=act)):
+                        raise AssertionError(f"[backward parity] dgrad "
+                                             f"{what}: two launches differ")
                     errs = (bwd_check("dgrad", dx,
                                       fused_mlp_dgrad_ref(g, y, w, act),
                                       dtype, what),
@@ -1309,8 +1325,9 @@ def phase_backward_parity(agent) -> dict:
     torch.cuda.synchronize()
     log(f"[backward parity] {cases} cases (13 layers x M {BWD_PARITY_M} x "
         f"2 dtypes x 4 activations, and {encoder} at the encoder's (K, N) "
-        f"{ENCODER_WGRAD} x M {ENCODER_M}, each wgrad launched twice with "
-        f"bit-equal dW and db) pass for dgrad and wgrad; worst abs err "
+        f"{ENCODER_WGRAD} x M {ENCODER_M}, each dgrad and wgrad launched "
+        f"twice with bit-equal results) pass for dgrad and wgrad; worst abs "
+        f"err "
         f"float32 dgrad {worst['dgrad', torch.float32]!r}, wgrad "
         f"{worst['wgrad', torch.float32]!r} (rtol 1e-3, atol 1e-4); "
         f"bfloat16 dgrad {worst['dgrad', torch.bfloat16]!r}, wgrad "
@@ -1342,12 +1359,20 @@ def flash_kernel_launches() -> dict:
     return dict(flash_attention.kernel_launches)
 
 
+def ssd_kernel_launches() -> dict:
+    """B8's launches by kernel: each of its three passes."""
+    from repro_torch.kernels.ssd import ssd
+    return dict(ssd.kernel_launches)
+
+
 def reset_launch_counts() -> None:
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd import ssd
     for w in _counted().values():
         w.launches = 0
     flash_attention.kernel_launches = dict.fromkeys(
         flash_attention.kernel_launches, 0)
+    ssd.kernel_launches.update(dict.fromkeys(ssd.kernel_launches, 0))
 
 
 def times(per: dict, n: int) -> dict:
@@ -1516,7 +1541,7 @@ def phase_training_parity(agent, trace=None, per_step=MLP_STEP,
 BURST_GROUPS = (("forward (B1)", ("fused_mlp_fwd_kernel",
                                   "fused_mlp_fwd_m64_kernel",
                                   "splitk_epilogue_kernel")),
-                ("dgrad (B2)", ("dgrad_kernel", "splitk_sum_kernel")),
+                ("dgrad (B2)", ("dgrad_kernel",)),
                 ("wgrad (B3)", ("wgrad_",)),
                 ("attention (B5)", ("mha_fwd_kernel",)),
                 ("attention dq, dkv (B6)", ("mha_bwd_dq_kernel",
@@ -1624,21 +1649,38 @@ def phase_backward_main_path(agent, per_step=MLP_STEP, tag="") -> dict:
     assert {k: len(v) for k, v in calls.items()} == {
         k: per_step[k] for k in calls}, {k: len(v) for k, v in calls.items()}
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    sms = fm._sm_count(0)
     out = {}
     with torch.no_grad():            # y is a saved output that needs grad
         for kind in ("dgrad", "wgrad"):
             rows, err = [], 0.0
             for call in calls[kind]:
                 run, ref, lib, (m, k, n), act = grad_closures(kind, *call)
-                err = max(err, bwd_check(kind, run(), ref(), torch.float32,
-                                         f"main path K={k} N={n} M={m} {act}"))
+                got = run()
+                what = f"main path K={k} N={n} M={m} {act}"
+                err = max(err, bwd_check(kind, got, ref(), torch.float32,
+                                         what))
+                again = run()
+                if not all(torch.equal(a, b) for a, b in zip(
+                        *((got, again) if kind == "wgrad"
+                          else ((got,), (again,))))):
+                    raise AssertionError(f"[{tag}{kind} main path] {what}: "
+                                         f"two launches differ")
                 t_k, t_p, t_l = (device_ms(f, flush) for f in (run, ref, lib))
                 b_ms, o_ms = grad_bound_ms(kind, m, k, n)
                 rows.append((t_k, t_p, t_l, b_ms, o_ms))
+                if kind == "dgrad":
+                    tm, tk, splits, _ = fm.dgrad_plan(m, k, n, sms)
+                    plan = (f"tile {tm}x{tk}, {splits} splits, cluster "
+                            f"{splits}")
+                else:
+                    plan = (f"tile {fm.wgrad_tile(m, k, n, sms)}, "
+                            f"{fm.wgrad_split_plan(m, k, n, sms)[0]} splits")
                 log(f"[{tag}{kind} main path] K={k:5d} N={n:4d} M={m} {act:10s}: "
                     f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  torch.mm "
                     f"{t_l:.4f} ms  bound {max(b_ms, o_ms):.4f} ms "
-                    f"({'bytes' if b_ms >= o_ms else 'operations'})")
+                    f"({'bytes' if b_ms >= o_ms else 'operations'}); {plan}; "
+                    f"two launches bit-equal")
             t_k, t_p, t_l, b_ms, o_ms = (sum(r[i] for r in rows)
                                          for i in range(5))
             by = "bytes" if b_ms >= o_ms else "operations"
@@ -1956,7 +1998,8 @@ def phase_ssd_parity() -> float:
     float32 and bfloat16; returns the worst float32 absolute error."""
     from repro_torch.kernels.ssd import ssd, ssd_plain
     gen = torch.Generator(device="cuda").manual_seed(17)
-    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst = {(dtype, what): 0.0 for dtype in SSD_TOL
+             for what in ("vs ssd_ref", "float32 out vs the plain version")}
     for b, s, h, p, n, chunk, g in SSD_GRID:
         for dtype, tol in SSD_TOL.items():
             args = ssd_inputs(b, s, h, p, n, g, dtype, gen)
@@ -1974,14 +2017,19 @@ def phase_ssd_parity() -> float:
                         f"[ssd parity] B={b} S={s} H={h} P={p} N={n} "
                         f"chunk={chunk} G={g} {dtype} {what}: max abs err "
                         f"{err}")
-                worst[dtype] = max(worst[dtype], err)
+                worst[dtype, what] = max(worst[dtype, what], err)
+            if not torch.equal(checks[1][1], ssd(*args, chunk=chunk,
+                                                 out_dtype=torch.float32)):
+                raise AssertionError(f"[ssd parity] B={b} S={s} H={h} "
+                                     f"{dtype}: two calls differ")
     torch.cuda.synchronize()
-    log(f"[ssd parity] {len(SSD_GRID) * 4} cases pass; worst abs err "
-        f"float32 {worst[torch.float32]!r}, bfloat16 "
-        f"{worst[torch.bfloat16]!r} (rtol = atol = 1e-3 and 5e-2 vs "
-        f"ssd_ref in x's dtype, {SSD_PLAIN_TOL} vs the plain version with "
-        f"float32 y)")
-    return worst[torch.float32]
+    log(f"[ssd parity] {len(SSD_GRID) * 4} cases pass, two calls bit-equal "
+        f"in each of the {len(SSD_GRID) * 2}; worst abs err " + ", ".join(
+            f"{str(dtype)[6:]} {what} {err!r}"
+            for (dtype, what), err in worst.items())
+        + f" (rtol = atol = 1e-3 and 5e-2 vs ssd_ref in x's dtype, "
+        f"{SSD_PLAIN_TOL} vs the plain version with float32 y)")
+    return max(worst[torch.float32, what] for _, what in worst)
 
 
 class FirstCalls:
@@ -2057,10 +2105,8 @@ def lm_kernel_closures(calls: dict) -> dict:
         c["fma_bound_ms"] = max(b_ms, c["flops"] / PEAK_F32_FLOP_PER_S * 1e3)
         if c["dtype"] == torch.bfloat16:
             o_ms = c["flops"] / PEAK_BF16_FLOP_PER_S * 1e3
-        elif name == "flash_attention":     # its route: 3xTF32
+        else:                               # both kernels' route: 3xTF32
             o_ms = 3 * c["flops"] / PEAK_TF32_FLOP_PER_S * 1e3
-        else:
-            o_ms = c["flops"] / PEAK_F32_FLOP_PER_S * 1e3
         c["bound_ms"] = max(b_ms, o_ms)
         c["bound_by"] = "bytes" if b_ms >= o_ms else "operations"
     return out
@@ -2106,13 +2152,16 @@ def prefill_parity(cfg, params, batch, expect: dict, tag: str) -> tuple:
         got = make_prefill_step(cfg, "kernel")(params, batch)
         torch.cuda.synchronize()
     counts, by_kernel = launch_counts(), flash_kernel_launches()
+    by_pass = ssd_kernel_launches()
     want = make_prefill_step(cfg, "torch")(params, batch)
     torch.cuda.synchronize()
     if counts != times(expect, 1) or by_kernel != {
-            "flash_fwd": counts["flash_attention"], "flash_fwd_sm90": 0}:
+            "flash_fwd": counts["flash_attention"], "flash_fwd_sm90": 0} \
+            or by_pass != dict.fromkeys(SSD_PASSES, counts["ssd"]):
         raise AssertionError(f"[{tag}] launches per forward {counts}, B7 by "
-                             f"kernel {by_kernel}; expected "
-                             f"{times(expect, 1)}, all B7 on flash_fwd")
+                             f"kernel {by_kernel}, B8 by kernel {by_pass}; "
+                             f"expected {times(expect, 1)}, all B7 on "
+                             f"flash_fwd, each B8 kernel once a call")
     b = got.shape[0]
     if got.shape != want.shape or not torch.isfinite(got).all():
         raise AssertionError(f"[{tag}] logits {tuple(got.shape)}, finite "
@@ -2126,7 +2175,7 @@ def prefill_parity(cfg, params, batch, expect: dict, tag: str) -> tuple:
         f"{tuple(got.shape)}, max |logit| {scale:.4f}, kernel vs torch "
         f"backend max abs err {err!r}; argmax agree on "
         f"{int(agree.sum())}/{b} rows ({int(decisive.sum())} decisive); "
-        f"launches per forward {counts}")
+        f"launches per forward {counts}; B8 by kernel {by_pass}")
     if err > LM_TOL * max(1.0, scale) or not bool(agree[decisive].all()):
         raise AssertionError(f"[{tag}] kernel backend disagrees with the "
                              f"torch backend: max abs err {err}")
@@ -2139,12 +2188,48 @@ def free_cuda() -> None:
     torch.cuda.empty_cache()
 
 
+SSD_PASSES = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")
 LM_GROUPS = (("B7 flash attention", ("flash_fwd_kernel",
                                      "flash_fwd_sm90_kernel")),
-             ("B8 ssd", ("ssd_kernel",)),
+             ("B8 ssd", SSD_PASSES),
              ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
              ("elementwise", ("elementwise", "vectorized", "unrolled")),
              ("reduce", ("reduce",)))
+
+
+def ssd_pass_ms(calls: dict, flush: torch.Tensor, what: str) -> dict:
+    """B8's three kernels timed one by one on the recorded call's operands
+    (the wrapper's preparation of dt and l made beforehand, as are the
+    states each pass reads); logs them beside the sum and the wrapper's
+    preparation.  It runs after the main path's counts were read."""
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.ssd.ref import prepare
+    (x, dt, dA, bm, cm), kw = calls["ssd"]
+    chunk, odt = kw["chunk"], kw.get("out_dtype") or x.dtype
+    b, s, h, p = x.shape
+    dtp, l = prepare(dt, dA, s, chunk)
+    states = torch.empty(sk.workspace_shape(b, s, h, bm.shape[-1], p, chunk),
+                         dtype=torch.float32, device="cuda")
+
+    def states_ready():
+        sk.chunk_state(x, dtp, l, bm, chunk, states)
+        sk.state_pass(states, l, chunk)
+
+    t = {"ssd_chunk_state": device_ms(
+        lambda: sk.chunk_state(x, dtp, l, bm, chunk, states), flush, reps=5)}
+    sk.chunk_state(x, dtp, l, bm, chunk, states)
+    t["ssd_state_pass"] = device_ms(lambda: sk.state_pass(states, l, chunk),
+                                    flush, reps=5)
+    states_ready()
+    t["ssd_chunk_scan"] = device_ms(
+        lambda: sk.chunk_scan(x, dtp, l, bm, cm, chunk, states, odt), flush,
+        reps=5)
+    prep = device_ms(lambda: prepare(dt, dA, s, chunk), flush, reps=5)
+    log(f"[lm prefill] ssd {what} by kernel: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in t.items())
+        + f"; sum {sum(t.values()):.4f} ms; the wrapper's preparation of dt "
+        f"and l {prep:.4f} ms")
+    return t
 
 
 def float32_step_time(cfg, params, batch, reps: int = 2) -> dict:
@@ -2228,15 +2313,14 @@ def phase_lm_prefill() -> dict:
                     "library_ms": t["lib"], "bound_ms": c["bound_ms"],
                     "bound_by": c["bound_by"]}
                 lib = "none" if t["lib"] is None else f"{t['lib']:.4f} ms"
-                route = ("3xTF32 at 495 TFLOP/s TF32"
-                         if name == "flash_attention" else
-                         "67 TFLOP/s float32")
                 log(f"[lm prefill] {name} float32 ({c['shape']}): kernel "
                     f"{t['run']:.4f} ms ({c['flops'] / t['run'] / 1e9:.2f} "
                     f"TFLOP/s of {c['flops'] / 1e9:.1f} GFLOP)  plain "
                     f"{t['ref']:.4f} ms  library {lib}  bound "
-                    f"{c['bound_ms']:.4f} ms ({c['bound_by']}, {route}; "
+                    f"{c['bound_ms']:.4f} ms ({c['bound_by']}, 3xTF32 at 495 "
+                    f"TFLOP/s TF32; "
                     f"on the CUDA cores {c['fma_bound_ms']:.4f} ms)")
+            out["f32"]["ssd_passes"] = ssd_pass_ms(calls, flush, "float32")
         del calls
     del params
     free_cuda()
@@ -2251,18 +2335,22 @@ def phase_lm_prefill() -> dict:
         logits = step(params, batch)          # warm-up, and the operands
     torch.cuda.synchronize()
     counts, by_kernel = launch_counts(), flash_kernel_launches()
+    by_pass = ssd_kernel_launches()
     if not torch.isfinite(logits).all():
         raise AssertionError("[lm prefill] bfloat16 logits not finite")
     want = {"flash_fwd": 0, "flash_fwd_sm90": LM_PREFILL["flash_attention"]}
-    if counts != times(LM_PREFILL, 1) or by_kernel != want:
+    if counts != times(LM_PREFILL, 1) or by_kernel != want \
+            or by_pass != dict.fromkeys(SSD_PASSES, LM_PREFILL["ssd"]):
         raise AssertionError(f"[lm prefill] bfloat16 step: launches per "
-                             f"forward {counts}, B7 by kernel {by_kernel}; "
-                             f"expected {times(LM_PREFILL, 1)}, {want}")
+                             f"forward {counts}, B7 by kernel {by_kernel}, B8 "
+                             f"by kernel {by_pass}; expected "
+                             f"{times(LM_PREFILL, 1)}, {want}, "
+                             f"{LM_PREFILL['ssd']} of each B8 kernel")
     out["bf16_launches"] = {"flash_attention": by_kernel["flash_fwd_sm90"],
                             "ssd": counts["ssd"]}
     out["bf16_err"] = {}
     log(f"[lm prefill] bfloat16 step, B=2 S={LM_PREFILL_S[0]}: launches per "
-        f"forward {counts}; B7 by kernel {by_kernel}")
+        f"forward {counts}; B7 by kernel {by_kernel}; B8 by kernel {by_pass}")
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -2294,6 +2382,12 @@ def phase_lm_prefill() -> dict:
         groups[name] += e.self_device_time_total / 1e3
     for name, ms in groups.items():
         log(f"[lm prefill]   {name:20s} {ms:10.3f} ms ({ms / prof_ms:.3f})")
+    b8 = {k: sum(e.self_device_time_total for e in events
+                 if k in e.key.lower()) / 1e3 for k in SSD_PASSES}
+    log(f"[lm prefill]   B8 by kernel: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in b8.items())
+        + f"; sum {sum(b8.values()):.3f} ms against the group's "
+        f"{groups['B8 ssd']:.3f} ms")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"[lm prefill]   {e.self_device_time_total / 1e3:10.3f} ms "
             f"x{e.count:5d}  {e.key[:90]}")
@@ -2306,6 +2400,9 @@ def phase_lm_prefill() -> dict:
             raise AssertionError(f"[lm prefill] {name} bfloat16 on the "
                                  f"path's operands: max abs err {err}")
         out["bf16_err"][name] = err
+        if name == "ssd" and not torch.equal(c["run"](), c["run"]()):
+            raise AssertionError("[lm prefill] ssd bfloat16 on the path's "
+                                 "operands: two calls differ")
         t = {k: device_ms(c[k], flush, reps=5) if c[k] else None
              for k in ("run", "ref", "lib")}
         out[name] = {"ms": t["run"], "plain_ms": t["ref"],
@@ -2317,6 +2414,7 @@ def phase_lm_prefill() -> dict:
             f"plain {t['ref']:.4f} ms  library {lib}  bound "
             f"{c['bound_ms']:.4f} ms ({c['bound_by']}); max abs err vs plain "
             f"{err!r} (tol {c['tol']})")
+    out["ssd_passes"] = ssd_pass_ms(calls, flush, "bfloat16 in")
     del params, calls
     free_cuda()
     return out

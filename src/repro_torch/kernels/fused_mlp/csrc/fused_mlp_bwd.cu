@@ -34,24 +34,25 @@
 //    results repeat bit for bit.  Each block stages x, g and y in shared
 //    memory and multiplies: float32 on the CUDA cores, bfloat16 on the
 //    tensor cores (below).
-//  * dgrad is bound by operations at M = 64 (about 7.6 us for the 4000 x
-//    1000 layer) and by W's bytes at small M.  Each dx[:, k] contracts along
-//    the contiguous row k of W, the transpose of the forward's access.
-//    Design: each block owns 64 rows of M by 64 columns of K and reads its
-//    64 rows of W once (per 64 rows of M), whole 32-byte sectors of 4 rows
-//    per warp load, transposing them into shared memory; the scaled g is staged
-//    in N-chunks of 32 (the whole (64, 4000) scaled g, 1 MB, does not fit).
-//    Each thread accumulates a 4 x 4 micro-tile and loads the next step's
-//    operands into registers while the current step is computed.  When the
-//    K tiles alone cannot fill the card (K = 4000 gives 63 tiles for 132
-//    SMs), N is split across blocks (grid.y); the float32 partial sums are
-//    added in split order by a second small kernel, so results do not
-//    depend on scheduling.
+//  * dgrad is bound by operations at M = 64 (about 7.6 us of float32 FMA
+//    for the 4000 x 1000 layer) and by bytes or latency at small M and on
+//    the attention encoder's layers (M = 8,256, K, N <= 128).  Each
+//    dx[:, k] contracts along the contiguous row k of W, the transpose of
+//    the forward's access, which is the K-major operand mma.sync takes.
+//    Design: the products run on the tensor cores (bfloat16 with s = g *
+//    act'(y) as hi + lo; float32 in 3xTF32); the tile (rows of M by
+//    columns of K) is chosen per layer so that the blocks spread over the
+//    SMs, and N is split across up to 8 blocks where the tiles alone
+//    cannot fill the card (K = 4000 gives 125 32-wide tiles for 132 SMs).
+//    The splits of a tile form a thread-block cluster and add their
+//    float32 partial sums in split order through distributed shared
+//    memory, in the same launch, so results do not depend on scheduling.
 //
-// Plain C interface for ctypes; the wrapper (kernel.py) picks the splits,
-// allocates dx, dW, db and the partial buffers, and raises on a non-zero
-// return.
+// Plain C interface for ctypes; the wrapper (kernel.py) picks the tiles
+// and splits, allocates dx, dW, db and the wgrad's partial buffers, and
+// raises on a non-zero return.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,12 +62,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-
-// dgrad geometry: 16 x 16 threads, 4 x 4 outputs each.
-constexpr int kDgTileM = 64;
-constexpr int kDgTileK = 64;
-constexpr int kDgStepN = 32;
-constexpr int kDgPad = 4;  // keeps rows 16-byte aligned, spreads the banks
 
 enum Activation { kLeakyRelu = 0, kRelu = 1, kTanh = 2, kLinear = 3 };
 enum DType { kFloat32 = 0, kBFloat16 = 1 };
@@ -217,6 +212,9 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Two values (low half first) as hi + lo, both bfloat16 pairs.
@@ -810,153 +808,395 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------------------------ dgrad
-// grid = (ceil(K / 64), splits, ceil(M / 64)); block = 256 threads.  Split s
-// covers columns [s * chunk, min(N, (s + 1) * chunk)) of g and W.  Thread
-// (tk, tm) = (tid % 16, tid / 16) owns rows m0 + tm*4 .. +3 and columns
-// k0 + tk*4 .. +3 of the block's dx tile.
-template <typename T, bool kVec, bool kFused>
-__global__ void __launch_bounds__(kThreads)
-    dgrad_kernel(const T* __restrict__ g, const T* __restrict__ y,
-                 const T* __restrict__ w, T* __restrict__ dx,
-                 float* __restrict__ partial, int M, int K, int N, int chunk,
-                 int act, float slope) {
-  constexpr int kPer = kDgTileM * kDgStepN / kThreads;  // 8 per thread
-  static_assert(kDgTileM == kDgTileK, "one staging map for g and W");
-  __shared__ __align__(16) float gs[kDgStepN][kDgTileM + kDgPad];
-  __shared__ __align__(16) float ws[kDgStepN][kDgTileK + kDgPad];
+// grid = (splits, ceil(K / BK), ceil(M / BM)) for a tile of BM rows of M by
+// BK columns of K (kernel.py's dgrad_plan: 64 x 128, 64 x 64 or 32 x 32);
+// 8 warps at 64 rows, else 4.  Split s covers columns [s *
+// chunk, min(N, (s + 1) * chunk)) of g and W; with more than one split, the
+// splits of one output tile are one thread-block cluster (blockIdx.x is
+// the rank).
+//
+// Each 32-column step of N goes through a three-stage cp.async ring in
+// shared memory: g, y (not for a linear layer: act' = 1) and W's rows land
+// there raw, zero past M, K or the split's end, two steps ahead of their
+// use (16-byte copies where N's rows allow, else element by element).  When
+// a step has landed, the block forms s = g * act'(y) once per staged
+// element and leaves it in place, split: g's rows become s_hi and y's s_lo
+// (one more barrier; formed as the fragments were read, each element was
+// converted by every warp that reads it, and the warps, one or two a
+// scheduler, waited on that chain).  Both operands are contiguous along N,
+// the contraction, which is what mma.sync's row.col layout wants, so
+// nothing is transposed:
+//  * bfloat16: s as bfloat16 s_hi + s_lo (about 16 mantissa bits), W as it
+//    is (exact), both by ldmatrix; each m16n8k16 tile adds s_lo W + s_hi W;
+//  * float32: s as TF32 hi + lo, W cut into hi + lo as it is read; each
+//    m16n8k8 tile adds lo.hi + hi.lo + hi.hi (3xTF32, the products of
+//    flash_fwd.cu), dropping only lo.lo.
+// The warps form a 2 x 4, 4 x 2 or 2 x 2 grid over the tile, each owning a
+// sub-tile of 16 x 8 tensor-core tiles.  With one split the block writes
+// its dx tile.  With more, each block leaves its float32 partial tile in
+// its own shared memory (where the ring was); after cluster.sync() block r
+// adds, through distributed shared memory, the partials of ranks 0, 1, ..
+// in that order for the r-th slice of the tile and stores it: one launch,
+// no partial sums in device memory, and the same bits every call.
+constexpr int kDgStepN = 32;             // columns of N a ring stage holds
+constexpr int kDgStages = 3;
+constexpr int kDgMaxCluster = 8;         // the portable cluster size
 
-  const int tid = threadIdx.x;
-  const int tk = tid & 15;
-  const int tm = tid >> 4;
-  const int k0 = blockIdx.x * kDgTileK;
-  const int split = blockIdx.y;
-  const int m0 = blockIdx.z * kDgTileM;
+template <int BM, int BK>
+struct DgGeom {
+  // Warps: 2 x 4 at 64 x 128, 4 x 2 at 64 x 64, 2 x 2 at 32 x 32.
+  static constexpr int kWarpsM = BM == 64 && BK == 64 ? 4 : 2;
+  static constexpr int kWarpsK = BK == 128 ? 4 : 2;
+  static constexpr int kThreads = 32 * kWarpsM * kWarpsK;
+  static constexpr int kWM = BM / kWarpsM;               // warp sub-tile
+  static constexpr int kWK = BK / kWarpsK;
+  static constexpr int kMI = kWM / 16;
+  static constexpr int kNJ = kWK / 8;
+  static_assert(kWM % 16 == 0 && kWK % 16 == 0, "warp sub-tile");
+  // Row pitches: float32 rows of 32 + 4 (the 3xTF32 fragment reads, row g
+  // column t, fall in 32 distinct banks); bfloat16 rows of 32 + 8 (80
+  // bytes: the 8 rows of an ldmatrix fall in distinct 16-byte bank groups).
+  static constexpr int kPitchF = kDgStepN + 4;
+  static constexpr int kPitchH = kDgStepN + 8;
+  static constexpr int kStageF = (2 * BM + BK) * kPitchF * 4;   // bytes
+  static constexpr int kStageH = (2 * BM + BK) * kPitchH * 2;
+  static constexpr int kPartPitch = BK + 4;
+  static constexpr int kPart = BM * kPartPitch * 4;
+  // The ring, then (with splits) the partial tile in its place.
+  static constexpr int kBytesF =
+      kDgStages * kStageF > kPart ? kDgStages * kStageF : kPart;
+  static constexpr int kBytesH =
+      kDgStages * kStageH > kPart ? kDgStages * kStageH : kPart;
+};
+
+// x = hi + lo: hi is x cut to TF32 (the low 13 bits zero); lo = x - hi is
+// exact in float32 and goes to the tensor core as it is (it reads the top
+// 19 bits), as in flash_fwd.cu.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  const uint32_t h = __float_as_uint(x) & 0xffffe000u;
+  hi = h;
+  lo = __float_as_uint(x - __uint_as_float(h));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* smem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+
+// Rows [row0, row0 + R) by columns [n0, n0 + 32) of a row-major (.., N)
+// operand into shared rows of kPitch, zero at rows >= row_end or columns
+// >= n_end.  vec: 16-byte cp.async copies (the operand and its rows are
+// aligned to them, and n_end, a multiple of 32 or N, cuts no copy); else
+// element by element.
+template <typename T, int R, int kPitch, int kThr>
+__device__ __forceinline__ void dgrad_stage(T* dst, const T* __restrict__ src,
+                                            int N, int row0, int row_end,
+                                            int n0, int n_end, bool vec,
+                                            int tid) {
+  if (vec) {
+    constexpr int kPer = 16 / static_cast<int>(sizeof(T));
+    constexpr int kRow = kDgStepN / kPer;                 // copies a row
+    for (int q = tid; q < R * kRow; q += kThr) {
+      const int r = q / kRow, c = (q % kRow) * kPer;
+      const bool live = row0 + r < row_end && n0 + c < n_end;
+      cp_async<16>(dst + r * kPitch + c,
+                   live ? src + static_cast<long long>(row0 + r) * N + n0 + c
+                        : src,
+                   live ? 16 : 0);
+    }
+    return;
+  }
+  for (int e = tid; e < R * kDgStepN; e += kThr) {
+    const int r = e / kDgStepN, c = e % kDgStepN;
+    dst[r * kPitch + c] =
+        row0 + r < row_end && n0 + c < n_end
+            ? src[static_cast<long long>(row0 + r) * N + n0 + c]
+            : from_f32<T>(0.f);
+  }
+}
+
+template <typename T, int BM, int BK, bool kSplit>
+__global__ void __launch_bounds__(DgGeom<BM, BK>::kThreads)
+    dgrad_kernel(const T* __restrict__ g, const T* __restrict__ y,
+                 const T* __restrict__ w, T* __restrict__ dx, int M, int K,
+                 int N, int chunk, int vec, int act, float slope) {
+  using G = DgGeom<BM, BK>;
+  constexpr bool kF32 = std::is_same_v<T, float>;
+  constexpr int kPitch = kF32 ? G::kPitchF : G::kPitchH;
+  constexpr int kStage = kF32 ? G::kStageF : G::kStageH;
+  extern __shared__ __align__(16) unsigned char dg_smem[];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int split = blockIdx.x;
+  const int k0 = blockIdx.y * BK;
+  const int m0 = blockIdx.z * BM;
   const int n_begin = split * chunk;
   const int n_end = min(N, n_begin + chunk);
-  // Staging map of a 64-row by 32-column tile (rows of g or of W, columns
-  // of N): element r of this thread is row (tid / 8) + 32 (r / 4), column
-  // (tid % 8) + 8 (r % 4).  A warp reads 8 consecutive columns (one 32-byte
-  // sector) of each of 4 rows, and writes the transposed tile to shared
-  // memory without bank conflicts.
-  const int srow = tid >> 3;
-  const int scol = tid & 7;
+  const int steps = (n_end - n_begin + kDgStepN - 1) / kDgStepN;
+  const int wm0 = (warp / G::kWarpsK) * G::kWM;
+  const int wk0 = (warp % G::kWarpsK) * G::kWK;
+  const bool use_y = act != kLinear;     // linear: act' = 1 whatever y is
+  const int gq = lane >> 2, tq = lane & 3;      // mma groupID, thread in group
+  const int lr = lane & 7, lm = lane >> 3;      // ldmatrix row, matrix
 
-  float gr[kPer], yr[kPer], wr[kPer];
-  auto load = [&](int nb) {
-#pragma unroll
-    for (int r = 0; r < kPer; ++r) {
-      const int row = srow + 32 * (r >> 2);
-      const int n = nb + scol + 8 * (r & 3);
-      const bool n_live = n < n_end;
-      const long long o = static_cast<long long>(m0 + row) * N + n;
-      const bool g_live = n_live && m0 + row < M;
-      gr[r] = g_live ? to_f32(g[o]) : 0.f;
-      yr[r] = g_live ? to_f32(y[o]) : 0.f;
-      wr[r] = (n_live && k0 + row < K)
-                  ? to_f32(w[static_cast<long long>(k0 + row) * N + n])
-                  : 0.f;
-    }
+  auto stage = [&](int slot, int step) {
+    T* gs = reinterpret_cast<T*>(dg_smem + slot * kStage);
+    T* ys = gs + BM * kPitch;
+    T* ws = ys + BM * kPitch;
+    const int nb = n_begin + step * kDgStepN;
+    dgrad_stage<T, BM, kPitch, G::kThreads>(gs, g, N, m0, M, nb, n_end, vec,
+                                            tid);
+    if (use_y)
+      dgrad_stage<T, BM, kPitch, G::kThreads>(ys, y, N, m0, M, nb, n_end,
+                                              vec, tid);
+    dgrad_stage<T, BK, kPitch, G::kThreads>(ws, w, N, k0, K, nb, n_end, vec,
+                                            tid);
   };
 
-  float acc[4][4];
+  float acc[G::kMI][G::kNJ][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < G::kMI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < G::kNJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  load(n_begin);
-  for (int nb = n_begin; nb < n_end; nb += kDgStepN) {
-    // Stage (g * act'(y))[m0 : m0 + 64, nb : nb + 32) and W[k0 : k0 + 64,
-    // nb : nb + 32), both transposed so the inner loop reads them along M
-    // and K; entries past M, K or the split's end stage as zero.
 #pragma unroll
-    for (int r = 0; r < kPer; ++r) {
-      const int row = srow + 32 * (r >> 2);
-      const int col = scol + 8 * (r & 3);
-      gs[col][row] = gr[r] * activation_grad(yr[r], act, slope);
-      ws[col][row] = wr[r];
-    }
-    __syncthreads();
-    if (nb + kDgStepN < n_end) load(nb + kDgStepN);
-#pragma unroll
-    for (int nn = 0; nn < kDgStepN; ++nn) {
-      const float4 a = *reinterpret_cast<const float4*>(&gs[nn][tm * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&ws[nn][tk * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int s = 0; s < kDgStages - 1; ++s) {
+    if (s < steps) stage(s, s);
+    cp_async_commit();                   // one group per step, empty or not
   }
-
-  const int c = k0 + tk * 4;
-  if (c >= K) return;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + tm * 4 + i;
-    if (m >= M) break;
-    if (kFused) {
-      Store4<T, kVec>::run(dx, static_cast<long long>(m) * K + c, c, K,
-                           acc[i]);
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait_prior();               // this step's group has landed
+    __syncthreads();                     // ... for every thread
+    T* const sh = reinterpret_cast<T*>(dg_smem + (step % kDgStages) * kStage);
+    T* const sl = sh + BM * kPitch;
+    const T* const ws = sl + BM * kPitch;
+    // s = g * act'(y), once per staged element, in place: g's rows become
+    // s_hi and y's rows s_lo (TF32 parts as float32 bits, or bfloat16).
+    if constexpr (kF32) {
+      for (int e = tid; e < BM * kDgStepN; e += G::kThreads) {
+        const int o = (e / kDgStepN) * kPitch + e % kDgStepN;
+        float v = sh[o];
+        if (use_y) v *= activation_grad(sl[o], act, slope);
+        uint32_t hi, lo;
+        split_tf32(v, hi, lo);
+        sh[o] = __uint_as_float(hi);
+        sl[o] = __uint_as_float(lo);
+      }
     } else {
-      Store4<float, kVec>::run(
-          partial, (static_cast<long long>(split) * M + m) * K + c, c, K,
-          acc[i]);
+      constexpr int kPairs = kDgStepN / 2;
+      for (int e = tid; e < BM * kPairs; e += G::kThreads) {
+        const int o = (e / kPairs) * kPitch + (e % kPairs) * 2;
+        const __nv_bfloat162 g2 = *reinterpret_cast<const __nv_bfloat162*>(sh + o);
+        float s0 = __low2float(g2), s1 = __high2float(g2);
+        if (use_y) {
+          const __nv_bfloat162 y2 =
+              *reinterpret_cast<const __nv_bfloat162*>(sl + o);
+          s0 *= activation_grad(__low2float(y2), act, slope);
+          s1 *= activation_grad(__high2float(y2), act, slope);
+        }
+        uint32_t hi, lo;
+        split_bf16x2(s0, s1, hi, lo);
+        *reinterpret_cast<uint32_t*>(sh + o) = hi;
+        *reinterpret_cast<uint32_t*>(sl + o) = lo;
+      }
+    }
+    __syncthreads();                     // s is in place; the slot refilled
+    if (step + kDgStages - 1 < steps)    // below was read a step ago
+      stage((step + kDgStages - 1) % kDgStages, step + kDgStages - 1);
+    cp_async_commit();
+    if constexpr (kF32) {
+#pragma unroll
+      for (int ks = 0; ks < kDgStepN; ks += 8) {
+        uint32_t ah[G::kMI][4], al[G::kMI][4];
+#pragma unroll
+        for (int i = 0; i < G::kMI; ++i) {
+          // a0..a3: (row g, col t), (g + 8, t), (g, t + 4), (g + 8, t + 4).
+          const int o = (wm0 + 16 * i + gq) * kPitch + ks + tq;
+          const int at[4] = {o, o + 8 * kPitch, o + 4, o + 8 * kPitch + 4};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ah[i][e] = __float_as_uint(sh[at[e]]);
+            al[i][e] = __float_as_uint(sl[at[e]]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < G::kNJ; ++j) {
+          // b0, b1: (k t, n g), (k t + 4, n g); W's row is n.
+          const float* q = ws + (wk0 + 8 * j + gq) * kPitch + ks + tq;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(q[0], bh0, bl0);
+          split_tf32(q[4], bh1, bl1);
+#pragma unroll
+          for (int i = 0; i < G::kMI; ++i) {
+            mma_tf32(acc[i][j], al[i], bh0, bh1);
+            mma_tf32(acc[i][j], ah[i], bl0, bl1);
+            mma_tf32(acc[i][j], ah[i], bh0, bh1);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < kDgStepN; ks += 16) {
+        // A matrices: (rows 0-7, k 0-7), (8-15, 0-7), (0-7, 8-15), (8-15,
+        // 8-15); lane l addresses row l & 7 of matrix l >> 3.
+        uint32_t ah[G::kMI][4], al[G::kMI][4];
+#pragma unroll
+        for (int i = 0; i < G::kMI; ++i) {
+          const int off = (wm0 + 16 * i + lr + (lm & 1) * 8) * kPitch + ks +
+                          (lm >> 1) * 8;
+          ldsm_x4(ah[i], sh + off);
+          ldsm_x4(al[i], sl + off);
+        }
+#pragma unroll
+        for (int jp = 0; jp < G::kNJ / 2; ++jp) {
+          // B matrices: (n-tile 2jp, k 0-7), (2jp, k 8-15), (2jp + 1, k
+          // 0-7), (2jp + 1, k 8-15).
+          const int off = (wk0 + 16 * jp + lr + (lm >> 1) * 8) * kPitch + ks +
+                          (lm & 1) * 8;
+          uint32_t b[4];
+          ldsm_x4(b, ws + off);
+          const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+#pragma unroll
+          for (int i = 0; i < G::kMI; ++i) {
+            mma_bf16(acc[i][2 * jp], al[i], b0);
+            mma_bf16(acc[i][2 * jp], ah[i], b0);
+            mma_bf16(acc[i][2 * jp + 1], al[i], b1);
+            mma_bf16(acc[i][2 * jp + 1], ah[i], b1);
+          }
+        }
+      }
     }
   }
-}
 
-// dx[i] = sum_s partial[s][i], summed in split order.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    splitk_sum_kernel(const float* __restrict__ partial, T* __restrict__ dx,
-                      long long total, int splits) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= total) return;
-  float s = 0.f;
-  for (int q = 0; q < splits; ++q) s += partial[q * total + i];
-  dx[i] = from_f32<T>(s);
-}
-
-template <typename T, bool kVec>
-void launch_dgrad_main(const T* g, const T* y, const T* w, T* dx,
-                       float* partial, int M, int K, int N, int splits,
-                       int chunk, int act, float slope, cudaStream_t stream) {
-  const dim3 grid((K + kDgTileK - 1) / kDgTileK, splits,
-                  (M + kDgTileM - 1) / kDgTileM);
-  if (splits == 1)
-    dgrad_kernel<T, kVec, true><<<grid, kThreads, 0, stream>>>(
-        g, y, w, dx, partial, M, K, N, chunk, act, slope);
-  else
-    dgrad_kernel<T, kVec, false><<<grid, kThreads, 0, stream>>>(
-        g, y, w, dx, partial, M, K, N, chunk, act, slope);
-}
-
-template <typename T>
-void launch_dgrad(const void* g, const void* y, const void* w, void* dx,
-                  float* partial, int M, int K, int N, int splits, int chunk,
-                  int vec, int act, float slope, cudaStream_t stream) {
-  const T* gt = static_cast<const T*>(g);
-  const T* yt = static_cast<const T*>(y);
-  const T* wt = static_cast<const T*>(w);
-  T* dxt = static_cast<T*>(dx);
-  if (vec)
-    launch_dgrad_main<T, true>(gt, yt, wt, dxt, partial, M, K, N, splits,
-                               chunk, act, slope, stream);
-  else
-    launch_dgrad_main<T, false>(gt, yt, wt, dxt, partial, M, K, N, splits,
-                                chunk, act, slope, stream);
-  if (splits > 1) {
-    const long long total = static_cast<long long>(M) * K;
-    const unsigned blocks =
-        static_cast<unsigned>((total + kThreads - 1) / kThreads);
-    splitk_sum_kernel<T><<<blocks, kThreads, 0, stream>>>(partial, dxt,
-                                                          total, splits);
+  if constexpr (!kSplit) {
+    const bool even = (K & 1) == 0;
+#pragma unroll
+    for (int i = 0; i < G::kMI; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm0 + 16 * i + gq + 8 * h;
+        if (m >= M) continue;
+#pragma unroll
+        for (int j = 0; j < G::kNJ; ++j) {
+          const int k = k0 + wk0 + 8 * j + 2 * tq;
+          if (k >= K) continue;
+          store2(dx, static_cast<long long>(m) * K + k, acc[i][j][2 * h],
+                 acc[i][j][2 * h + 1], even, k + 1 < K);
+        }
+      }
+  } else {
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    float* part = reinterpret_cast<float*>(dg_smem);
+    cp_async_wait_all();                 // only empty groups are left
+    __syncthreads();                     // the ring is read
+#pragma unroll
+    for (int i = 0; i < G::kMI; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < G::kNJ; ++j)
+          *reinterpret_cast<float2*>(
+              part + (wm0 + 16 * i + gq + 8 * h) * G::kPartPitch + wk0 +
+              8 * j + 2 * tq) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+    cluster.sync();                      // every partial tile is written
+    const int rank = static_cast<int>(cluster.block_rank());
+    const int ranks = static_cast<int>(cluster.num_blocks());
+    constexpr int kQuads = BK / 4;
+    constexpr int kAll = BM * kQuads;
+    const int q_end = (rank + 1) * kAll / ranks;
+    const bool vec4 = (K & 3) == 0;
+    for (int q = rank * kAll / ranks + tid; q < q_end; q += G::kThreads) {
+      const int row = q / kQuads, c = (q % kQuads) * 4;
+      const int m = m0 + row, k = k0 + c;
+      float t[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int s = 0; s < ranks; ++s) {    // in split order
+        const float4 v = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(part, s) + row * G::kPartPitch + c);
+        t[0] += v.x, t[1] += v.y, t[2] += v.z, t[3] += v.w;
+      }
+      if (m >= M || k >= K) continue;
+      const long long off = static_cast<long long>(m) * K + k;
+      if (vec4)
+        Store4<T, true>::run(dx, off, k, K, t);
+      else
+        Store4<T, false>::run(dx, off, k, K, t);
+    }
+    cluster.sync();                      // no block leaves while read
   }
+}
+
+template <typename T, int BM, int BK>
+cudaError_t launch_dgrad_tile(const void* g, const void* y, const void* w,
+                              void* dx, int M, int K, int N, int splits,
+                              int chunk, int vec, int act, float slope,
+                              cudaStream_t stream) {
+  using G = DgGeom<BM, BK>;
+  constexpr int bytes = std::is_same_v<T, float> ? G::kBytesF : G::kBytesH;
+  const auto kernel = splits == 1 ? dgrad_kernel<T, BM, BK, false>
+                                  : dgrad_kernel<T, BM, BK, true>;
+  static bool configured = false;        // once per instantiation
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        dgrad_kernel<T, BM, BK, false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(dgrad_kernel<T, BM, BK, true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 bytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  if (splits > kDgMaxCluster) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(splits, (K + BK - 1) / BK, (M + BM - 1) / BM);
+  config.blockDim = dim3(G::kThreads);
+  config.dynamicSmemBytes = bytes;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;     // the splits of a tile: one cluster
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = splits > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&config, kernel, static_cast<const T*>(g),
+                            static_cast<const T*>(y), static_cast<const T*>(w),
+                            static_cast<T*>(dx), M, K, N, chunk, vec, act,
+                            slope);
+}
+
+template <typename T>
+cudaError_t launch_dgrad(const void* g, const void* y, const void* w,
+                         void* dx, int M, int K, int N, int tile_m,
+                         int tile_k, int splits, int chunk, int vec, int act,
+                         float slope, cudaStream_t stream) {
+  if (tile_m == 64 && tile_k == 128)
+    return launch_dgrad_tile<T, 64, 128>(g, y, w, dx, M, K, N, splits, chunk,
+                                         vec, act, slope, stream);
+  if (tile_m == 64 && tile_k == 64)
+    return launch_dgrad_tile<T, 64, 64>(g, y, w, dx, M, K, N, splits, chunk,
+                                        vec, act, slope, stream);
+  if (tile_m == 32 && tile_k == 32)
+    return launch_dgrad_tile<T, 32, 32>(g, y, w, dx, M, K, N, splits, chunk,
+                                        vec, act, slope, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -1044,20 +1284,23 @@ cudaError_t launch_wgrad(const void* x, const void* g, const void* y,
 extern "C" {
 
 // Each returns cudaGetLastError() after its launches (0 on success).
+// tile_m x tile_k: one of the dgrad tiles; splits <= 8 (one cluster a
+// tile); vec: g, y, W and their rows of N are 16-byte aligned.
 int mrsch_fused_mlp_dgrad(const void* g, const void* y, const void* w,
-                          void* dx, void* partial, int M, int K, int N,
-                          int splits, int chunk, int vec, int act, float slope,
-                          int dtype, void* stream) {
+                          void* dx, int M, int K, int N, int tile_m,
+                          int tile_k, int splits, int chunk, int vec, int act,
+                          float slope, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* p = static_cast<float*>(partial);
+  cudaError_t err;
   if (dtype == kFloat32)
-    launch_dgrad<float>(g, y, w, dx, p, M, K, N, splits, chunk, vec, act,
-                        slope, s);
+    err = launch_dgrad<float>(g, y, w, dx, M, K, N, tile_m, tile_k, splits,
+                              chunk, vec, act, slope, s);
   else if (dtype == kBFloat16)
-    launch_dgrad<__nv_bfloat16>(g, y, w, dx, p, M, K, N, splits, chunk, vec,
-                                act, slope, s);
+    err = launch_dgrad<__nv_bfloat16>(g, y, w, dx, M, K, N, tile_m, tile_k,
+                                      splits, chunk, vec, act, slope, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

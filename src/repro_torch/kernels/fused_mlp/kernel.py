@@ -32,9 +32,9 @@ BLOCKS_PER_SM = 4       # blocks the split aims to put in flight per SM
 M64_BLOCKS_PER_SM = 2   # blocks of the M > 16 kernel an SM holds at once
 
 # Backward geometry, as fixed in csrc/fused_mlp_bwd.cu.
-DGRAD_TILE = 64         # rows of M and columns of K per dgrad block
-DGRAD_STEP_N = 32       # columns of N staged per step
-MIN_SPLIT_COLS = 128    # shortest N range a dgrad split covers
+DGRAD_TILES = ((64, 128), (64, 64), (32, 32))  # (M rows, K columns)
+DGRAD_STEP_N = 32       # columns of N staged per step (the shortest split)
+DGRAD_MAX_CLUSTER = 8   # splits of one tile: one cluster, portable size
 WGRAD_TILES = (128, 64, 32)  # square wgrad tiles of K x N, 8 warps each
 WGRAD_STEP_M = 32           # rows of M a wgrad ring stage holds
 MIN_WGRAD_SPLIT_ROWS = 64   # shortest M slice a wgrad split covers
@@ -64,7 +64,7 @@ def _library() -> ctypes.CDLL:
 def _backward_library() -> ctypes.CDLL:
     lib = load_library(build_backward())
     lib.mrsch_fused_mlp_dgrad.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.mrsch_fused_mlp_wgrad.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
@@ -138,41 +138,56 @@ def fused_mlp_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y
 
 
-def dgrad_split_plan(m: int, k: int, n: int, sm_count: int) -> tuple:
-    """(splits, chunk) of the dgrad: N is cut into ``splits`` ranges of
-    ``chunk`` columns (a multiple of ``DGRAD_STEP_N``), as ``forward_plan``
-    cuts K for the forward, until about ``BLOCKS_PER_SM`` blocks per SM are
-    in flight, never into ranges shorter than ``MIN_SPLIT_COLS``."""
-    tiles = -(-k // DGRAD_TILE) * -(-m // DGRAD_TILE)
-    want = max(1, -(-BLOCKS_PER_SM * sm_count // tiles))
-    splits = max(1, min(want, n // MIN_SPLIT_COLS, 65535))
+def dgrad_plan(m: int, k: int, n: int, sm_count: int) -> tuple:
+    """(tile_m, tile_k, splits, chunk) of the dgrad: blocks own ``tile_m``
+    rows of M by ``tile_k`` columns of K (one of ``DGRAD_TILES``), and N is
+    cut into ``splits`` ranges of ``chunk`` columns (a multiple of
+    ``DGRAD_STEP_N``), the splits of one tile being one thread-block
+    cluster, of at most ``DGRAD_MAX_CLUSTER`` blocks.  The tile: the widest
+    of 64 x 128, 64 x 64 and 32 x 32 (no wider than K needs) whose tiles,
+    split as far as the cluster and N allow, reach half the SMs: a wide
+    tile stages g and y for fewer K tiles.  N is split only where the tiles
+    alone do not reach half the SMs, and then until about one and a half
+    blocks per SM are in flight (the 4000 x 1000 layer at M = 64: 32 tiles
+    of 64 x 128, 7 splits)."""
+    def tiles(tile):
+        return -(-m // tile[0]) * -(-k // tile[1])
+
+    most = min(DGRAD_MAX_CLUSTER, -(-n // DGRAD_STEP_N))
+    half = -(-sm_count // 2)
+    fit = [t for t in DGRAD_TILES
+           if t[1] <= max(DGRAD_STEP_N, -(-k // DGRAD_STEP_N) * DGRAD_STEP_N)]
+    tile = next((t for t in fit if tiles(t) * most >= half), fit[-1])
+    splits = 1 if tiles(tile) >= half else min(
+        most, -(-3 * sm_count // (2 * tiles(tile))))
     chunk = -(-n // splits)
     chunk = -(-chunk // DGRAD_STEP_N) * DGRAD_STEP_N
-    return -(-n // chunk), chunk
+    return tile[0], tile[1], -(-n // chunk), chunk
 
 
 def fused_mlp_dgrad(g: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                     activation: str, slope: float) -> torch.Tensor:
     """Launch the dgrad on CUDA tensors the caller has checked: g, y (M, N),
-    w (K, N), one dtype, contiguous, on one device -> dx (M, K)."""
+    w (K, N), one dtype, contiguous, on one device -> dx (M, K), in one
+    launch (the splits of N add up inside their cluster)."""
     m, n = g.shape
     k = w.shape[0]
     device = g.device
-    splits, chunk = dgrad_split_plan(m, k, n, _sm_count(device.index))
+    tile_m, tile_k, splits, chunk = dgrad_plan(m, k, n,
+                                               _sm_count(device.index))
     dx = torch.empty((m, k), dtype=g.dtype, device=device)
-    partial = (torch.empty((splits, m, k), dtype=torch.float32, device=device)
-               if splits > 1 else None)
+    vec = int(_copy_bytes(n, g) == _copy_bytes(n, y) == _copy_bytes(n, w)
+              == 16)
     lib = _backward_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.mrsch_fused_mlp_dgrad(
             g.data_ptr(), y.data_ptr(), w.data_ptr(), dx.data_ptr(),
-            partial.data_ptr() if partial is not None else None,
-            m, k, n, splits, chunk, int(k % 4 == 0),
+            m, k, n, tile_m, tile_k, splits, chunk, vec,
             ACTIVATIONS.index(activation), float(slope), DTYPES[g.dtype],
             stream)
     check_launch(lib, "fused_mlp_dgrad", err,
-                 f"M={m} K={k} N={n} splits={splits}")
+                 f"M={m} K={k} N={n} tile={tile_m}x{tile_k} splits={splits}")
     return dx
 
 

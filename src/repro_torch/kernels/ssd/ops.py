@@ -7,7 +7,10 @@ cumsum of dA; ``ref.prepare``).  x, B and C are not padded: the kernel
 reads tokens past S as zeros, which is what the padding gives, and takes
 them in the models' layout, strided, with no per-head copy of B and C.
 A tensor on the CPU goes through the plain version (``ref.ssd_plain``); a
-CUDA tensor launches the kernel or raises, never falling back.
+CUDA tensor launches the kernels or raises, never falling back.  On the
+card B8 is three launches (``kernel.PASSES``): ``ssd.launches`` counts the
+wrapper's calls and ``ssd.kernel_launches`` each pass's launches, counted
+by the pass.
 """
 from __future__ import annotations
 
@@ -79,5 +82,9 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
     return y
 
 
-#: Kernel launches since the count was last set to 0 (CPU calls excluded).
+#: Kernel launches since the count was last set to 0 (CPU calls excluded):
+#: ``ssd.launches`` counts calls of B8, ``ssd.kernel_launches`` the
+#: launches of each of its three passes, each counted where the pass
+#: launches (``kernel.LAUNCHES``, the same dict: set it to 0 in place).
 ssd.launches = 0
+ssd.kernel_launches = kernel.LAUNCHES

@@ -8,6 +8,10 @@ path, and the oracles the CUDA kernel is held against on the card.
   (the Pallas kernel's body batched over batch-heads).
 * ``ssd_plain``: ``ssd_chunk_ref`` behind the wrapper's preparation, in the
   models' layout: the plain version of ``ops.ssd``.
+* ``ssd_chunk_state_ref``, ``ssd_state_pass_ref``, ``ssd_chunk_scan_ref``:
+  the three passes the CUDA kernels compute, parallel over chunks (the
+  decomposition of the JAX package's ``_ssd_chunked``); composed, they
+  give ``ssd_chunk_ref``'s function.
 """
 from __future__ import annotations
 
@@ -56,6 +60,48 @@ def ssd_chunk_ref(x, dt, l, B, C, chunk: int) -> torch.Tensor:
         h = torch.exp(l_last) * h + (Bc * sdec * dtc).transpose(1, 2) @ xc
         ys.append(y)
     return torch.cat(ys, dim=1)
+
+
+def _chunks(t, chunk: int):
+    """(BH, S, d) -> (BH, n_chunks, chunk, d) float32."""
+    bh, S, d = t.shape
+    return t.float().reshape(bh, S // chunk, chunk, d)
+
+
+def ssd_chunk_state_ref(x, dt, l, B, chunk: int) -> torch.Tensor:
+    """Pass 1: each chunk's local state S_c = (B exp(l_last - l) dt)^T x,
+    for x (BH, S, P), dt and l (BH, S, 1), B (BH, S, N), S % chunk == 0 ->
+    (BH, n_chunks, N, P) float32."""
+    xc, dtc, lc, Bc = (_chunks(t, chunk) for t in (x, dt, l, B))
+    scale = torch.exp(lc[:, :, -1:] - lc) * dtc             # (BH, nc, Q, 1)
+    return (Bc * scale).transpose(2, 3) @ xc
+
+
+def ssd_state_pass_ref(states, l, chunk: int) -> torch.Tensor:
+    """Pass 2: the state entering each chunk from the chunks' local states
+    (BH, n_chunks, N, P) and l (BH, S, 1): h_0 = 0, h_c = exp(l_last_{c-1})
+    h_{c-1} + S_{c-1} -> (BH, n_chunks, N, P) float32."""
+    decay = torch.exp(_chunks(l, chunk)[:, :, -1, 0])        # (BH, nc)
+    h = torch.zeros_like(states[:, 0])
+    entering = []
+    for c in range(states.shape[1]):
+        entering.append(h)
+        h = decay[:, c, None, None] * h + states[:, c]
+    return torch.stack(entering, dim=1)
+
+
+def ssd_chunk_scan_ref(x, dt, l, B, C, h, chunk: int) -> torch.Tensor:
+    """Pass 3: per chunk, y = tril(C B^T * exp(l_i - l_j)) * dt^T @ x +
+    exp(l) * (C @ h_c), from the states entering the chunks h (BH,
+    n_chunks, N, P) -> y (BH, S, P) float32.  The decay is the masked
+    difference exp(l_i - l_j), never exp(l_i) exp(-l_j)."""
+    xc, dtc, lc, Bc, Cc = (_chunks(t, chunk) for t in (x, dt, l, B, C))
+    tril = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=x.device))
+    diff = torch.where(tril, lc - lc.transpose(2, 3), -torch.inf)
+    w = (Cc @ Bc.transpose(2, 3)) * torch.exp(diff) * dtc.transpose(2, 3)
+    y = w @ xc + torch.exp(lc) * (Cc @ h)
+    return y.reshape(x.shape[0], -1, x.shape[2])
 
 
 def prepare(dt, dA, S: int, chunk: int) -> tuple:

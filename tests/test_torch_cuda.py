@@ -274,6 +274,45 @@ def test_gradient_kernels_match_plain_versions(cuda, m, k, n, dtype, tol):
                                    atol=atol)
 
 
+# The dgrad's shapes (M, K, N) on the training paths: the MLP step's 10
+# layers at M = 64 (the attention step's DFP heads among them) and the
+# attention encoder's token layers at M = 8,256.
+DGRAD_STEP_SHAPES = [(64, 4000, 1000), (64, 1000, 512), (64, 128, 128),
+                     (64, 768, 512), (64, 512, 12), (64, 512, 120),
+                     (8256, 64, 128), (8256, 128, 64), (8256, 64, 64)]
+
+
+@pytest.mark.parametrize("m,k,n", DGRAD_STEP_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-3, 1e-4)),
+                                       (torch.bfloat16, (2e-2, 2e-2))])
+def test_dgrad_at_the_training_paths_shapes(cuda, m, k, n, dtype, tol):
+    """B2, one launch a call (N split inside one cluster where the plan
+    splits it), against its plain version at the reference's gradient
+    tolerance, all four activations; two calls give the same bits."""
+    from repro_torch.kernels.fused_mlp import (fused_mlp_dgrad,
+                                               fused_mlp_dgrad_ref)
+    from repro_torch.kernels.fused_mlp.ref import apply_activation
+    rng = np.random.default_rng(m + k + n)
+    w = torch.from_numpy((rng.standard_normal((k, n)) / np.sqrt(k))
+                         .astype(np.float32)).to(cuda, dtype)
+    g = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
+    pre = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
+    g = g.to(cuda, dtype)
+    rtol, atol = tol
+    for act in ACTIVATIONS:
+        y = apply_activation(pre, act, 0.2).to(cuda, dtype)
+        launches = fused_mlp_dgrad.launches
+        dx = fused_mlp_dgrad(g, y, w, activation=act)
+        again = fused_mlp_dgrad(g, y, w, activation=act)
+        torch.cuda.synchronize()
+        assert fused_mlp_dgrad.launches == launches + 2
+        assert dx.dtype == dtype and dx.shape == (m, k)
+        assert torch.equal(dx, again)
+        torch.testing.assert_close(
+            dx.float(), fused_mlp_dgrad_ref(g, y, w, act).float(),
+            rtol=rtol, atol=atol)
+
+
 # The attention encoder's token layers (K, N) at M up to 64 x 129: the
 # wgrad splits M across blocks and adds the splits in a fixed order.
 ENCODER_WGRAD = [(4, 64), (64, 64), (64, 128), (128, 64)]
@@ -675,11 +714,12 @@ def _ssd_oracle(x, dt, dA, bm, cm):
 # mamba2-1.3b (N 128), one group over 4 heads.
 SSD_GRID = [(1, 64, 2, 16, 8, 16, 2), (2, 100, 3, 16, 8, 32, 3),
             (1, 256, 4, 32, 16, 64, 4), (1, 600, 4, 64, 64, 256, 1),
-            (1, 600, 4, 64, 128, 256, 1)]
+            (1, 600, 4, 64, 128, 256, 1), (2, 4096, 112, 64, 64, 256, 1)]
 SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
-# Float32 y against the plain chunked version: both widen x, B and C and do
-# all their arithmetic in float32, so they differ only in summation order,
-# whatever x's dtype.
+# Float32 y against the plain chunked version, whatever x's dtype: the
+# kernels' bfloat16 products take their float32 operands in three bfloat16
+# parts and float32 ones run in 3xTF32, so they differ from the plain
+# float32 arithmetic by more than the order of the sums, well inside this.
 SSD_PLAIN_TOL = 1e-4
 
 
@@ -688,22 +728,28 @@ SSD_PLAIN_TOL = 1e-4
 def test_ssd_kernel_matches_plain_versions(cuda, b, s, h, p, n, chunk, g,
                                            dtype):
     """B8 in x's dtype against the exact recurrence ``ssd_ref`` (rtol =
-    atol = 1e-3 float32, 5e-2 bfloat16, the reference's tolerances), and
-    with float32 y, as the models take it, against its plain chunked
-    version (1e-4 for both dtypes)."""
+    atol = 1e-3 float32, 5e-2 bfloat16, the reference's tolerances) and its
+    plain chunked version, and with float32 y, as the models take it,
+    against the plain chunked version (1e-4 for both dtypes); each call
+    launches the three passes once, and two calls give the same bits."""
     from repro_torch.kernels.ssd import ssd, ssd_plain
     x, dt, dA, bm, cm = _ssd_case(b, s, h, p, n, g, dtype, s + n, cuda)
     launches = ssd.launches
+    by_kernel = dict(ssd.kernel_launches)
     y = ssd(x, dt, dA, bm, cm, chunk=chunk)
     y32 = ssd(x, dt, dA, bm, cm, chunk=chunk, out_dtype=torch.float32)
+    again = ssd(x, dt, dA, bm, cm, chunk=chunk, out_dtype=torch.float32)
     plain = ssd_plain(x, dt, dA, bm, cm, chunk=chunk,
                       out_dtype=torch.float32)
     oracle = _ssd_oracle(x, dt, dA, bm, cm)
     torch.cuda.synchronize()
-    assert ssd.launches == launches + 2
+    assert ssd.launches == launches + 3
+    assert ssd.kernel_launches == {k: v + 3 for k, v in by_kernel.items()}
     assert y.dtype == dtype and y32.dtype == torch.float32
+    assert torch.equal(y32, again)
     tol = SSD_TOL[dtype]
     torch.testing.assert_close(y.float(), oracle.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(y.float(), plain, rtol=tol, atol=tol)
     torch.testing.assert_close(y32, plain, rtol=SSD_PLAIN_TOL,
                                atol=SSD_PLAIN_TOL)
 
@@ -760,9 +806,11 @@ def test_lm_prefill_kernel_backend_matches_torch_backend(cuda):
                          device=cuda, dtype=torch.float32)
     batch = make_batch(cfg, InputShape("t", 2176, 1, "prefill"), device=cuda)
     flash_attention.launches = ssd.launches = 0
+    ssd.kernel_launches.update(dict.fromkeys(ssd.kernel_launches, 0))
     got = make_prefill_step(cfg)(params, batch)
     torch.cuda.synchronize()
     assert (flash_attention.launches, ssd.launches) == (2, 4)
+    assert ssd.kernel_launches == dict.fromkeys(ssd.kernel_launches, 4)
     want = make_prefill_step(cfg, backend="torch")(params, batch)
     assert got.shape == (1, cfg.vocab_size) and torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)

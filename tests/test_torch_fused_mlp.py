@@ -264,15 +264,36 @@ def test_gradient_wrappers_reject_what_the_kernels_do_not_take():
         fused_mlp_dgrad(g, g, torch.ones(16, 8), activation="gelu")
 
 
-@pytest.mark.parametrize("m,k,n", [(64, 4000, 1000), (64, 1000, 512),
-                                   (64, 768, 512), (64, 128, 128),
-                                   (64, 512, 12), (1, 4000, 1000),
-                                   (128, 4000, 1000)])
+# The dgrad's shapes (M, K, N): the MLP step's 10 layers (M = 64), the
+# attention step's encoder token layers (M up to 64 x 129) besides its DFP
+# heads, and other M.
+DGRAD_SHAPES = [(64, 4000, 1000), (64, 1000, 512), (64, 768, 512),
+                (64, 128, 128), (64, 512, 12), (1, 4000, 1000),
+                (128, 4000, 1000), (64, 512, 120), (8256, 64, 128),
+                (8256, 128, 64), (8256, 64, 64), (8192, 64, 64),
+                (8255, 128, 64), (16, 300, 129), (37, 300, 129), (5, 63, 7)]
+
+
+@pytest.mark.parametrize("m,k,n", DGRAD_SHAPES)
 def test_dgrad_split_plan_covers_n(m, k, n):
-    splits, chunk = kernel.dgrad_split_plan(m, k, n, sm_count=132)
-    assert 1 <= splits <= 65535 and chunk % kernel.DGRAD_STEP_N == 0
+    """The dgrad's plan: a tile the kernel has, N cut into whole 32-column
+    steps with no empty split, the splits of a tile one cluster of at most
+    ``DGRAD_MAX_CLUSTER`` blocks, grid dimensions within CUDA's limits; N
+    not split where the tiles reach half the SMs, else split as far as it
+    takes to fill the card (or as far as the cluster and N allow)."""
+    tile_m, tile_k, splits, chunk = kernel.dgrad_plan(m, k, n, sm_count=132)
+    assert (tile_m, tile_k) in kernel.DGRAD_TILES
+    assert chunk % kernel.DGRAD_STEP_N == 0
     assert (splits - 1) * chunk < n <= splits * chunk   # no empty split
-    assert splits == 1 or chunk >= kernel.MIN_SPLIT_COLS
+    assert 1 <= splits <= kernel.DGRAD_MAX_CLUSTER
+    m_tiles, k_tiles = -(-m // tile_m), -(-k // tile_k)
+    assert m_tiles <= 65535 and k_tiles <= 65535
+    most = min(kernel.DGRAD_MAX_CLUSTER, -(-n // kernel.DGRAD_STEP_N))
+    if m_tiles * k_tiles >= 66:
+        assert splits == 1
+    else:
+        assert m_tiles * k_tiles * splits >= min(132,
+                                                 m_tiles * k_tiles * most)
 
 
 # The attention encoder's token layers at M up to 64 x 129, and the DFP's

@@ -18,7 +18,10 @@ from repro.models.mamba2 import _ssd_chunked as j_ssd_chunked
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention,
                                                  flash_attention_ref, kernel)
-from repro_torch.kernels.ssd import ssd, ssd_chunk_ref, ssd_plain, ssd_ref
+from repro_torch.kernels.ssd import (ssd, ssd_chunk_ref, ssd_chunk_scan_ref,
+                                     ssd_chunk_state_ref, ssd_plain, ssd_ref,
+                                     ssd_state_pass_ref)
+from repro_torch.kernels.ssd import kernel as ssd_kernel
 from repro_torch.kernels.ssd.ref import prepare
 from repro_torch.models.mamba2 import _ssd_chunked
 
@@ -292,3 +295,89 @@ def test_ssd_checks_its_operands():
         ssd(x, dt, dA, bm.double(), cm, chunk=16)
     with pytest.raises(TypeError, match="dtype"):
         ssd(x, dt, dA, bm, cm, chunk=16, out_dtype=torch.float16)
+
+
+# The reference tests' grid (B, S, H, P, N, chunk) with a group per head,
+# then a ragged S with G < H.
+PASS_GRID = [(b, s, h, p, n, chunk, h) for b, s, h, p, n, chunk in SSD_GRID] \
+    + [(2, 75, 4, 16, 8, 32, 1), (1, 200, 6, 16, 16, 64, 2)]
+
+
+def _three_passes(x, dt, dA, bm, cm, chunk):
+    """The three plain passes the CUDA kernels compute, on the models'
+    layout (the wrapper's preparation and padding, as ``ssd_plain``):
+    -> (y (b, S, H, P), the flattened operands of ``ssd_chunk_ref``)."""
+    b, S, H, P = x.shape
+    G, N = bm.shape[2], bm.shape[3]
+    dtp, l = prepare(dt, dA, S, chunk)
+    Sp = dtp.shape[1]
+    group = torch.arange(H) // (H // G)
+
+    def flat(t, d):
+        t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, Sp - S))
+        return t.transpose(1, 2).reshape(b * H, Sp, d)
+
+    col = lambda t: t.transpose(1, 2).reshape(b * H, Sp, 1)
+    ops = (flat(x, P), col(dtp), col(l), flat(bm[:, :, group], N),
+           flat(cm[:, :, group], N))
+    states = ssd_chunk_state_ref(*ops[:4], chunk)
+    assert states.shape == (b * H, Sp // chunk, N, P)
+    h = ssd_state_pass_ref(states, ops[2], chunk)
+    y = ssd_chunk_scan_ref(*ops, h, chunk)
+    return y.reshape(b, H, Sp, P).transpose(1, 2)[:, :S], ops
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,G", PASS_GRID)
+def test_ssd_three_passes_compose_to_the_chunked_ssd(B, S, H, P, N, chunk,
+                                                     G):
+    """The three passes B8's kernels compute (chunk states, the state pass,
+    the chunk scan), composed, equal ``ssd_chunk_ref`` on the same
+    operands, the Pallas ``ssd`` in interpret mode and the model's
+    ``_ssd_chunked`` (the reference's and the port's), float32, within
+    1e-5."""
+    x, dt, dA, bm, cm = _ssd_case(B, S, H, P, N, seed=S + N, G=G)
+    y, ops = _three_passes(*(torch.from_numpy(a)
+                             for a in (x, dt, dA, bm, cm)), chunk)
+    tol = dict(rtol=1e-5, atol=1e-5)
+    want = ssd_chunk_ref(*ops, chunk).reshape(B, H, -1, P).transpose(1, 2)
+    np.testing.assert_allclose(y.numpy(), want[:, :S].numpy(), **tol)
+    rep = lambda a: jnp.repeat(jnp.asarray(a), H // G, axis=2)
+    pallas = jssd(jnp.asarray(x), jnp.asarray(dt), jnp.asarray(dA), rep(bm),
+                  rep(cm), chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), np.asarray(pallas), **tol)
+    pad = (-S) % chunk
+    padded = [np.pad(a, [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2))
+              for a in (x, dt, dA, bm, cm)]
+    model = j_ssd_chunked(*(jnp.asarray(a) for a in padded), chunk)
+    np.testing.assert_allclose(y.numpy(), np.asarray(model)[:, :S], **tol)
+    port = _ssd_chunked(*(torch.from_numpy(a) for a in padded), chunk)
+    np.testing.assert_allclose(y.numpy(), port[:, :S].numpy(), **tol)
+
+
+# (B, S, H, P, N, chunk): zamba2-7b's and mamba2-1.3b's prefill, a ragged
+# S, and the reference tests' grid.
+PLAN_SHAPES = [(2, 4096, 112, 64, 64, 256), (2, 3000, 112, 64, 64, 256),
+               (2, 3000, 64, 64, 128, 256), (1, 2176, 8, 16, 16, 32)] + \
+    SSD_GRID
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", PLAN_SHAPES)
+def test_ssd_plan_covers_the_sequence_and_the_state(B, S, H, P, N, chunk):
+    """B8's workspace holds one float32 (N, P) state per (batch, head,
+    chunk) of the padded sequence, the layout the three passes index."""
+    shape = ssd_kernel.workspace_shape(B, S, H, N, P, chunk)
+    n_chunks = shape[2]
+    assert shape == (B, H, n_chunks, N, P)
+    assert (n_chunks - 1) * chunk < S <= n_chunks * chunk
+
+
+def test_ssd_cpu_call_counts_no_launch():
+    """A CPU tensor takes the plain version and adds to neither B8's count
+    nor any pass's."""
+    x, dt, dA, bm, cm = (torch.from_numpy(a)
+                         for a in _ssd_case(1, 40, 2, 16, 8, seed=2, G=1))
+    launches = ssd.launches
+    by_kernel = dict(ssd.kernel_launches)
+    assert ssd(x, dt, dA, bm, cm, chunk=16).shape == x.shape
+    assert ssd.launches == launches and ssd.kernel_launches == by_kernel
+    assert tuple(by_kernel) == ssd_kernel.PASSES
