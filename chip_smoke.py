@@ -64,8 +64,10 @@ prints its wall seconds:
    calls);
 11. masked-attention parity (phase 2 builds its two libraries):
    ``mha_fwd`` and the two backward kernels against their
-   plain versions over (BH, S, dh) up to (256, 129, 16) and dh 8-64,
-   lengths 0, 1, S//2 and S among them, and a fully masked case;
+   plain versions over (BH, S, dh) up to (256, 129, 16) and dh 8-64, S
+   from 1 to 600 (tiled beyond one block a batch-head, stages in a ring),
+   lengths 0, 1, S//2, S, 15, 16 and 17 among them, a fully masked case,
+   and two calls of each kernel bit-equal at (256, 129, 16);
 12. the attention state module (``state_module="attention"``, Q = 128,
    the reference's default attention agent, 1,383,428 parameters) on
    traces of full-scale S1 at 400 jobs/day for one day, whose queues
@@ -82,7 +84,8 @@ prints its wall seconds:
    plain versions (window_pack bit for bit) and timed beside
    their bounds (over the valid keys, and dense), their plain versions
    and ``scaled_dot_product_attention`` with the same key mask and its
-   backward (the library yardstick, which the port never calls);
+   backward (the library yardstick, which the port never calls); B5 also
+   at the service's BH = 4 (one batch row of the rollout's call);
 14. the LM zoo's kernels (right after the build): the causal flash
    attention B7 against its plain version over the reference tests'
    grid, every instantiated dh (16-256) and Sq != Sk, float32 (rtol =
@@ -177,7 +180,8 @@ ENCODER_ACT = {(4, 64): "linear", (64, 64): "linear",
 # chunk 256, bfloat16 in and float32 y.
 PRIOR_MS = {"fused_mlp_wgrad": 0.3603, "fused_mlp_forward": 0.5125,
             "fused_mlp_dgrad": 0.1480, "flash_attention": 9.7836,
-            "flash_attention_f32": 9.6996, "ssd": 4.0991}
+            "flash_attention_f32": 9.6996, "ssd": 4.0991, "mha_fwd": 0.0431,
+            "mha_bwd_dq": 0.0455, "mha_bwd_dkv": 0.0811}
 TRAIN_SEEDS = (1, 2, 3)          # full-scale S1 traces of the training path
 WP_SOURCE = "src/repro_torch/kernels/window_pack/csrc/window_pack.cu"
 WP_REPLACES = "src/repro/kernels/window_pack/kernel.py:37"
@@ -197,9 +201,14 @@ MHA_BWD_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/mha_bwd.cu"
 MHA_REPLACES = "src/repro/kernels/flash_attention/kernel.py:125"
 MHA_BWD_REPLACES = "src/repro/kernels/flash_attention/kernel.py:216"
 # (BH, S, dh): the attention state module's (4 heads x batch rows, 1 + Q,
-# 16) at batch 1, 8 and 64, and the other instantiated head dims.
+# 16) at batch 1, 8 and 64, and the other instantiated head dims; then the
+# kernels' edges: one row, one and two 16-row warps, a single 8-key group
+# short of 128, more rows than one block holds (257) and a tiled query
+# side with a ring of key stages (600; at dh 64 a ring on both sides).
 MHA_GRID = [(4, 129, 16), (32, 129, 16), (256, 129, 16), (8, 49, 8),
-            (8, 257, 32), (8, 65, 64)]
+            (8, 257, 32), (8, 65, 64), (8, 1, 16), (8, 16, 8), (8, 17, 16),
+            (8, 128, 16), (8, 257, 16), (8, 600, 16), (8, 600, 64)]
+MHA_REPEAT = (256, 129, 16)     # two calls of each kernel compared bit for bit
 MHA_TOL = {"mha_fwd": 2e-5, "mha_bwd_dq": 1e-4, "mha_bwd_dkv": 1e-4}
 # B7's two kernels, by dtype (kernel.flash_plan): bfloat16 on wgmma, float32
 # in 3xTF32 on mma.sync; each has its entry in the kernels line.
@@ -426,13 +435,15 @@ def phase_window_pack_parity() -> float:
 
 
 def mha_case(bh: int, s: int, dh: int, gen) -> tuple:
-    """q, k, v, do (BH, S, dh) on the card and lengths 0, 1, S//2 and S,
-    then random (BH < 4 takes the first BH of those)."""
+    """q, k, v, do (BH, S, dh) on the card and lengths 0, 1, S//2, S, 15,
+    16 and 17, then random (BH < 7 takes the first BH of those)."""
     q, k, v, do = (torch.randn(bh, s, dh, generator=gen, device="cuda")
                    for _ in range(4))
     lens = torch.randint(0, s + 1, (bh,), generator=gen,
                          device="cuda").float()
-    lens[:4] = torch.tensor([0.0, 1.0, s // 2, s], device="cuda")[:bh]
+    head = torch.tensor([0.0, 1.0, s // 2, s, 15.0, 16.0, 17.0],
+                        device="cuda")[:bh]
+    lens[:len(head)] = head
     return q, k, v, do, lens
 
 
@@ -492,13 +503,34 @@ def phase_mha_parity() -> dict:
     for t in (out, *grads):
         assert torch.isfinite(t).all() and not t.abs().max(), \
             "[mha parity] a fully masked case is not exactly 0"
+    mha_repeat(gen)
     log(f"[mha parity] {len(MHA_GRID)} shapes (BH, S, dh) {MHA_GRID}, "
-        f"lengths 0, 1, S//2, S and random: worst abs err mha_fwd "
-        f"{worst['mha_fwd']!r} (tol 2e-5), mha_bwd_dq "
+        f"lengths 0, 1, S//2, S, 15, 16, 17 and random: worst abs err "
+        f"mha_fwd {worst['mha_fwd']!r} (tol 2e-5), mha_bwd_dq "
         f"{worst['mha_bwd_dq']!r}, mha_bwd_dkv {worst['mha_bwd_dkv']!r} "
         f"(tol 1e-4); masked rows and keys exactly 0; a fully masked "
-        f"(8, 129, 16) output and its three gradients exactly 0")
+        f"(8, 129, 16) output and its three gradients exactly 0; two calls "
+        f"of each kernel at {MHA_REPEAT} bit-equal")
     return worst
+
+
+def mha_repeat(gen) -> None:
+    """Each masked-attention kernel called twice on the same inputs at
+    MHA_REPEAT must give the same bits (no atomics, a fixed order)."""
+    from repro_torch.kernels.flash_attention import (mha_bwd_dkv, mha_bwd_dq,
+                                                     mha_fwd)
+    q, k, v, do, lens = mha_case(*MHA_REPEAT, gen)
+    runs = []
+    for _ in range(2):
+        o, lse = mha_fwd(q, k, v, lens)
+        delta = (do * o).sum(-1)
+        runs.append((o, lse, mha_bwd_dq(q, k, v, do, lse, delta, lens),
+                     *mha_bwd_dkv(q, k, v, do, lse, delta, lens)))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), *runs):
+        if not torch.equal(a, b):
+            raise AssertionError(f"[mha parity] two calls at {MHA_REPEAT} "
+                                 f"differ in {name}")
 
 
 def wp_bound(waiting: torch.Tensor, f: int, w: int) -> tuple:
@@ -1791,9 +1823,11 @@ def phase_attention_main_path(agent, sim) -> dict:
     attention paths give them.  (1) One more greedy device rollout: every
     ``mha_fwd`` call is held against its plain version as it is made, and
     every 16th call's operands are kept; the kept call with the median
-    total length is timed; ``phase_window_pack_main_path`` records and
-    checks the same rollout's window packs.  (2) One train step: its two ``mha_fwd``, two ``mha_bwd_dq``
-    and two ``mha_bwd_dkv`` calls are recorded, each held against its
+    total length is timed, and so are its first 4 batch-heads (one batch
+    row: the service's BH = 4); ``phase_window_pack_main_path`` records
+    and checks the same rollout's window packs.  (2) One train step: its
+    two ``mha_fwd``, two ``mha_bwd_dq`` and two ``mha_bwd_dkv`` calls are
+    recorded, each held against its
     plain version and timed (L2 flushed) beside its bound, its plain
     version and ``scaled_dot_product_attention``; the step's sums are the
     kernels line's.  The launches made here are not counted: the paths'
@@ -1853,6 +1887,10 @@ def phase_attention_main_path(agent, sim) -> dict:
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     log(f"[attn kernels] bounds from {PEAKS}; card: "
         f"{gpu_name_and_power_limit()}")
+    one = torch.empty(1, device="cuda")
+    log(f"[attn kernels] timing floor: a 1-element fill_ takes "
+        f"{device_ms(lambda: one.fill_(1.0), flush):.4f} ms the same way "
+        f"(launch and events; every kernel time below includes it)")
 
     def measure(kind, args, what):
         run, ref, lib, err = mha_closures(kind, args)
@@ -1876,6 +1914,8 @@ def phase_attention_main_path(agent, sim) -> dict:
     med = kept[int(np.argsort(total)[len(kept) // 2])]
     measure("mha_fwd", med, f"device rollout (median of {len(kept)} kept "
             f"of {n_calls} calls, all {n_calls} within {rollout_err!r})")
+    measure("mha_fwd", tuple(t[:4].contiguous() for t in med),
+            "service shape (batch 1: the first 4 batch-heads of that call)")
     out = {}
     with torch.no_grad():
         for kind in launch:

@@ -3,9 +3,10 @@ scheme every ``kernels/*/kernel.py`` shares.
 
 A source is compiled for ``sm_90a`` at first use into
 ``build/repro_torch_kernels/`` at the root of the checkout, under a name
-keyed by a hash of the source and the flags, so a changed source is
-rebuilt and an unchanged one is loaded as it is.  The libraries have a
-plain C interface; every entry point returns a ``cudaError_t`` and
+keyed by a hash of the source, the headers it includes from its own
+directory (``#include "name.cuh"``) and the flags, so a changed source or
+header is rebuilt and an unchanged one is loaded as it is.  The libraries
+have a plain C interface; every entry point returns a ``cudaError_t`` and
 ``mrsch_cuda_error_string`` names it.  Nothing here runs when the module
 is imported.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 import time
@@ -50,10 +52,20 @@ def _nvcc(name: str) -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _key_bytes(source: Path) -> bytes:
+    """The source followed by the local headers it includes, in order."""
+    src = source.read_bytes()
+    return src + b"".join((source.parent / h.decode()).read_bytes()
+                          for h in _LOCAL_INCLUDE.findall(src))
+
+
 def build_library(name: str, source: Path) -> BuildInfo:
     """Compile ``source`` into ``<name>-<hash>.so`` unless already built."""
-    src = source.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    key = hashlib.sha256(_key_bytes(source)
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"{name}-{key}.so"
     log = lib.with_suffix(".log")
     with _lock(name):

@@ -18,6 +18,9 @@ from repro_torch.kernels.flash_attention import (attention_ref, mha,
                                                  mha_bwd_dkv, mha_bwd_dq,
                                                  mha_bwd_ref, mha_fwd,
                                                  mha_fwd_ref)
+from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS, MHA_KINDS,
+                                                        MHA_MAX_WARPS,
+                                                        mha_plan)
 
 # tests/test_kernels.py's MHA_SHAPES: S = 1 + queue_cap for caps 48, 128
 # and 64 (no block multiple), with the reference's block size.
@@ -154,3 +157,73 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     o, lse = mha_fwd(q, k, v, lens)
     with pytest.raises(ValueError, match="shape mismatch"):
         mha_bwd_dq(q, k, v, o, lse[:, :5].contiguous(), lse, lens)
+
+
+# The card's parity grid's (BH, S) (tests/test_torch_cuda.py::MHA_GRID and
+# chip_smoke.py's), each planned at every instantiated dh; an H100's SMs.
+PLAN_SHAPES = [(4, 129), (32, 129), (256, 129), (8, 49), (8, 257), (8, 65),
+               (8, 1), (8, 16), (8, 17), (8, 128), (8, 600)]
+SMS = 132
+
+
+@pytest.mark.parametrize("kind", MHA_KINDS)
+def test_plan_holds_each_batch_head_in_one_block_on_the_main_path(kind):
+    """(256, 129, 16), the device engine's and the trainer's launch: one
+    block of 9 warps per batch-head, no block with fewer than 16 rows, and
+    all 129 keys (queries for dkv) in one shared stage."""
+    plan = mha_plan(kind, 256, 129, 129, 16, SMS)
+    assert (plan.rows, plan.tiles, plan.stages) == (144, 1, 1)
+    assert plan.stage >= 129
+    last = 129 - plan.rows * (plan.tiles - 1)
+    assert min(plan.rows, last) >= 16
+
+
+@pytest.mark.parametrize("kind", ["mha_fwd", "mha_bwd_dq"])
+def test_plan_splits_query_rows_where_batch_heads_are_few(kind):
+    """The service's BH = 4: three blocks of 3 warps per batch-head (48,
+    48 and 33 rows), so 12 blocks, not 4, share the work."""
+    plan = mha_plan(kind, 4, 129, 129, 16, SMS)
+    assert (plan.rows, plan.tiles) == (48, 3)
+    assert mha_plan("mha_bwd_dkv", 4, 129, 129, 16, SMS).tiles == 1
+
+
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+@pytest.mark.parametrize("kind", MHA_KINDS)
+def test_plans_fit_the_card_over_the_parity_grid(kind, dh):
+    """Every plan at the grid's shapes: shared memory within 227 KB, whole
+    warps within the kernel's most, tiles that cover the rows with no
+    empty block, and one stage only when it holds the other side."""
+    for bh, s in PLAN_SHAPES:
+        plan = mha_plan(kind, bh, s, s, dh, SMS)
+        assert plan.smem <= 227 * 1024, (bh, s, plan)
+        assert plan.rows % 16 == 0
+        assert 16 <= plan.rows <= 16 * MHA_MAX_WARPS[dh], (bh, s, plan)
+        assert plan.rows * (plan.tiles - 1) < s <= plan.rows * plan.tiles
+        assert plan.stage % 16 == 0
+        assert plan.stages == (1 if plan.stage >= s else 2), (bh, s, plan)
+    if dh == 16:      # S = 600 is tiled beyond one block per batch-head
+        assert mha_plan(kind, 8, 600, 600, dh, SMS).tiles > 1
+
+
+def test_plan_rejects_what_no_kernel_takes():
+    with pytest.raises(ValueError, match="head dim"):
+        mha_plan("mha_fwd", 4, 129, 129, 12, SMS)
+    with pytest.raises(ValueError, match="unknown kernel"):
+        mha_plan("mha", 4, 129, 129, 16, SMS)
+
+
+def test_build_key_covers_the_local_headers(tmp_path):
+    """A kernel library is built again when a header its source includes
+    from its own directory changes: the build key hashes both (B5 and B6
+    share ``csrc/mha_common.cuh``)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel
+    for source in (kernel.SOURCE, kernel.BWD_SOURCE):
+        header = source.with_name("mha_common.cuh").read_bytes()
+        assert header in _build._key_bytes(source)
+    src, hdr = tmp_path / "k.cu", tmp_path / "h.cuh"
+    src.write_text('#include "h.cuh"\n#include <cuda_runtime.h>\n')
+    hdr.write_text("// one\n")
+    first = _build._key_bytes(src)
+    hdr.write_text("// two\n")
+    assert _build._key_bytes(src) != first

@@ -456,19 +456,25 @@ def test_train_agent_on_the_card(cuda):
 
 # ------------------------------------------------------- masked attention
 # chip_smoke.py's grid: the main path's (4 x batch rows, 1 + Q = 129, 16)
-# at batch 1, 8 and 64, and the other instantiated head dims.
+# at batch 1, 8 and 64, and the other instantiated head dims; then the
+# kernels' edges: one row, one and two 16-row warps, a single 8-key group
+# short of 128, more rows than one block holds (257) and a tiled query
+# side with a ring of key stages (600; at dh 64 a ring on both sides).
 MHA_GRID = [(4, 129, 16), (32, 129, 16), (256, 129, 16), (8, 49, 8),
-            (8, 257, 32), (8, 65, 64)]
+            (8, 257, 32), (8, 65, 64), (8, 1, 16), (8, 16, 8), (8, 17, 16),
+            (8, 128, 16), (8, 257, 16), (8, 600, 16), (8, 600, 64)]
 
 
 def _mha_case(bh, s, dh, seed, device):
-    """q, k, v, do (BH, S, dh) and lengths 0, 1, S // 2, S, then random."""
+    """q, k, v, do (BH, S, dh) and lengths 0, 1, S // 2, S, 15, 16, 17
+    (the first BH of them), then random."""
     rng = np.random.default_rng(seed)
     q, k, v, do = (torch.from_numpy(rng.standard_normal((bh, s, dh))
                                     .astype(np.float32)).to(device)
                    for _ in range(4))
     lens = rng.integers(0, s + 1, bh).astype(np.float32)
-    lens[:4] = (0, 1, s // 2, s)
+    head = np.asarray((0, 1, s // 2, s, 15, 16, 17), np.float32)[:bh]
+    lens[:len(head)] = head
     return q, k, v, do, torch.from_numpy(lens).to(device)
 
 
@@ -502,6 +508,23 @@ def test_mha_kernels_match_plain_versions(cuda, bh, s, dh):
     kpos = torch.arange(s, device=cuda)[None, :] >= lens[:, None]
     for g in (grads[0][~valid], grads[1][kpos], grads[2][kpos]):
         assert torch.equal(g, torch.zeros_like(g))
+
+
+def test_mha_kernels_repeat_bit_for_bit(cuda):
+    """B5 and both B6 kernels at the main path's (256, 129, 16): two calls
+    on the same inputs give the same bits (no atomics, a fixed order)."""
+    from repro_torch.kernels.flash_attention import (mha_bwd_dkv, mha_bwd_dq,
+                                                     mha_fwd)
+    q, k, v, do, lens = _mha_case(256, 129, 16, 11, cuda)
+    runs = []
+    for _ in range(2):
+        o, lse = mha_fwd(q, k, v, lens)
+        delta = (do * o).sum(-1)
+        runs.append((o, lse, mha_bwd_dq(q, k, v, do, lse, delta, lens),
+                     *mha_bwd_dkv(q, k, v, do, lse, delta, lens)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_mha_fully_masked_is_exactly_zero_on_the_card(cuda):
