@@ -19,9 +19,9 @@ prints its wall seconds:
    four (K, N) at M 8,255 and 8,256, all four activations, float32 (rtol =
    atol = 2e-4) and bfloat16 (2e-2); two launches with a K split (M = 64,
    the 11410 x 4000 layer) bit-equal;
-4. window-pack parity: the kernel against its plain version, bit for bit,
-   over shapes (N, J, F, W) up to (512, 2048, 4, 10) and waiting densities
-   0, 0.05, 0.4 and 1;
+4. window-pack parity: the standalone pack (``pack_window``) against its
+   plain version, bit for bit, over shapes (N, J, F, W) up to (512, 2048,
+   4, 10) and waiting densities 0, 0.05, 0.4 and 1;
 5. timing: each kernel, its plain version and (fused MLP only)
    ``torch.addmm`` + activation (the library yardstick, which the port
    never calls) at the main paths' shapes, each beside its bound: the 13
@@ -40,9 +40,15 @@ prints its wall seconds:
    event trace of an integer-time trace;
 8. device-engine path: greedy ``DeviceSimulator.rollout()`` of the
    paper-width agent over 64 full-scale S1 traces (warm-up, then one
-   timed rollout), with ``pack_window`` launched once and the fused MLP 13
-   times per deciding round, a ``torch.profiler`` busy share (device
-   activity only), and one epsilon-greedy collection rollout;
+   timed rollout), with the round's fused front (``pack_decision_rows``:
+   queued mask, free counts, window pack and decision rows in one launch,
+   counted as ``window_pack``) launched once and the fused MLP 13 times
+   per deciding round, a ``torch.profiler`` busy share (device activity
+   only) and device operations per round, and one epsilon-greedy
+   collection rollout; then one more rollout records every round's front
+   operands, holds the kernel against its plain composite on each (bit
+   for bit but the summed goal columns, within atol 1e-6, rtol 1e-5) and
+   times both on the median round;
 9. fused-MLP backward parity: the dgrad and wgrad kernels against their
    plain versions at the 13 DFP layer shapes, M in {1, 16, 37, 64, 128},
    and at the attention encoder's (K, N) in {(4, 64), (64, 64), (64, 128),
@@ -75,13 +81,14 @@ prints its wall seconds:
    launches per forward; every served decision against the plain
    backend under a top-2-margin guard), device-engine parity and the
    device-engine path of 7-8 (25, 2 and 1 ``window_pack`` per deciding
-   round, the pack at K = Q; the median of three timed rollouts, no
+   round, the front packing K = Q; the median of three timed rollouts, no
    collection rollout), the training path of 10 (25 forward, 21
    dgrad, 25 wgrad, 2 of each attention kernel per step; 60 gradient
    leaves on both backends);
-13. the attention kernels, and ``window_pack`` at K = Q, on the operands
+13. the attention kernels, and the round's front at K = Q, on the operands
    one more device rollout and a train step give them: held against their
-   plain versions (window_pack bit for bit) and timed beside
+   plain versions (the front bit for bit but the summed goal and mean-TTF
+   columns) and timed beside
    their bounds (over the valid keys, and dense), their plain versions
    and ``scaled_dot_product_attention`` with the same key mask and its
    backward (the library yardstick, which the port never calls); B5 also
@@ -114,7 +121,9 @@ prints its wall seconds:
    mamba2-1.3b (N 128; 4 of 48) at full width through the checks of 15.
 
 The line before the last is a JSON summary of the kernels (B1's times
-are the 13 DFP layers' at M = 64), B7 as two
+are the 13 DFP layers' at M = 64; ``window_pack``'s are the fused round
+front's on the MLP path's median round, its plain time the composite's,
+its launches both device paths'), B7 as two
 entries: ``flash_attention`` (``flash_fwd_sm90.cu``, bfloat16; its launches
 are the bfloat16 prefill step's) and ``flash_attention_f32``
 (``flash_fwd.cu``; the float32 prefill steps'); the last line is
@@ -177,11 +186,13 @@ ENCODER_ACT = {(4, 64): "linear", (64, 64): "linear",
 # M = 64; B2 over the MLP train step's 10 layers; B7 at B = 2, S = 4096, 32
 # heads of 112, causal, in bfloat16 (flash_attention) and float32
 # (flash_attention_f32); B8 at B = 2, S = 4096, 112 heads of 64, N 64,
-# chunk 256, bfloat16 in and float32 y.
+# chunk 256, bfloat16 in and float32 y; B4 the standalone window pack at
+# (64, 358, 4, 10), before it became the round's fused front.
 PRIOR_MS = {"fused_mlp_wgrad": 0.3603, "fused_mlp_forward": 0.5125,
             "fused_mlp_dgrad": 0.1480, "flash_attention": 9.7836,
             "flash_attention_f32": 9.6996, "ssd": 4.0991, "mha_fwd": 0.0431,
-            "mha_bwd_dq": 0.0455, "mha_bwd_dkv": 0.0811}
+            "mha_bwd_dq": 0.0455, "mha_bwd_dkv": 0.0811,
+            "window_pack": 0.0076}
 TRAIN_SEEDS = (1, 2, 3)          # full-scale S1 traces of the training path
 WP_SOURCE = "src/repro_torch/kernels/window_pack/csrc/window_pack.cu"
 WP_REPLACES = "src/repro/kernels/window_pack/kernel.py:37"
@@ -194,6 +205,13 @@ WP_PARITY = [(1, 40, 4, 10), (3, 50, 7, 10), (64, 330, 4, 10),
              (2, 1, 4, 10)]
 WP_DENSITIES = (0.0, 0.05, 0.4, 1.0)
 WP_TIMING = [(64, 358, 4, 10), (512, 2048, 4, 10)]
+# The round's front (pack_decision_rows): its summed row columns (the goal,
+# the attention context's mean TTF) are sums over the job or unit axis in
+# another order than the plain composite's, so they agree within these;
+# every other output is bit-equal.
+FRONT_SUMMED_ATOL, FRONT_SUMMED_RTOL = 1e-6, 1e-5
+# The front's operands that are fixed for a rollout (not cloned per round).
+ROLLOUT_CONSTANT = ("feats", "walltime", "demands", "caps_f")
 DEVICE_ENVS = 64                 # environments of the device-engine path
 
 MHA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/mha.cu"
@@ -569,53 +587,146 @@ def phase_window_pack_timing() -> None:
             f"computes it")
 
 
+def front_bound(spec, args: dict, out) -> tuple:
+    """(bytes, operations) times of one call of the round's front, in ms,
+    for this data: each input read once where the outputs depend on it,
+    each output written once.  The job flags, ``now`` and ``release`` (and
+    ``owner`` with drains) are read whole; where the rows carry the goal,
+    walltime only of the waiting jobs, est_end only of the running ones
+    (started, not finished), demands only of their union (every other
+    job's goal weight is 0), and feature rows only of the selected jobs.
+    Per job 4 compares and, for a job in the goal, 3 + 2R flops; per unit
+    6 (compare, clamp, scale, sums); per selected slot 2; over the float32
+    rate.  Bytes bound it."""
+    n, j = args["ready"].shape
+    R, U, K = spec.n_resources, spec.n_units, spec.k
+    rows = spec.mode != "mask"
+    selected = int(out.valid.sum())
+    read = n * (j * (4 + 3) + 4 + 4 * U) + 4 * R
+    if spec.has_drains:
+        read += 4 * n * U
+    ops = n * j * 4 + 6 * n * U + 2 * selected
+    if rows:
+        waiting = out.waiting > 0.5
+        running = args["started"] & ~args["finished"]
+        in_goal = int((waiting | running).sum())
+        read += (4 * int(waiting.sum()) + 4 * int(running.sum())
+                 + 4 * R * in_goal + 4 * (R + 2) * selected)
+        ops += (3 + 2 * R) * in_goal
+    written = n * (4 * j + 4 + 4 * R + 4 * K + K + 4 * spec.row_dim)
+    return ((read + written) / PEAK_BYTES_PER_S * 1e3,
+            ops / PEAK_F32_FLOP_PER_S * 1e3)
+
+
+def front_check(spec, args: dict, what: str) -> tuple:
+    """The fused front against its plain composite on one round: every
+    output bit for bit but the summed columns of the rows (the goal, the
+    attention context's mean TTF: sums over the job or unit axis in
+    another order), which must agree within FRONT_SUMMED_ATOL/RTOL.
+    Returns the largest absolute difference (0.0 when equal) and the
+    number of waiting jobs over the environments."""
+    from repro_torch.kernels.window_pack import (pack_decision_rows,
+                                                 pack_decision_rows_reference)
+    out = pack_decision_rows(spec, **args)
+    ref = pack_decision_rows_reference(spec, **args)
+    summed = torch.zeros(spec.row_dim, dtype=torch.bool, device="cuda")
+    summed[list(spec.summed_columns)] = True
+    err = 0.0
+    for name, a, b in zip(out._fields, out, ref):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"[front] {what}: {name} is {a.dtype} "
+                                 f"{tuple(a.shape)}, plain {b.dtype} "
+                                 f"{tuple(b.shape)}")
+        if name == "obs":
+            if not torch.allclose(a[:, summed], b[:, summed],
+                                  rtol=FRONT_SUMMED_RTOL,
+                                  atol=FRONT_SUMMED_ATOL):
+                raise AssertionError(f"[front] {what}: summed columns "
+                                     f"differ beyond the tolerance")
+            err = max(err, float((a[:, summed] - b[:, summed]).abs().max()
+                                 if summed.any() else 0.0))
+            a, b = a[:, ~summed], b[:, ~summed]
+        if not torch.equal(a, b):
+            raise AssertionError(f"[front] {what}: {name} differs")
+    return err, int(out.n_waiting.sum())
+
+
+def host_ms(fn, reps: int = 15) -> float:
+    """Median host time to issue ``fn`` (the card idle before each)."""
+    walls = []
+    for _ in range(reps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(walls[2:]) * 1e3
+
+
 def phase_window_pack_main_path(sim, tag="window_pack main path") -> dict:
-    """``window_pack`` on the inputs the device engine's main path gives
-    it: one more greedy rollout records every round's (waiting, feats);
-    each round is held against the plain version bit for bit, and the
-    round with the median number of waiting jobs is timed.  The pack
-    takes K = W slots, or K = Q for the attention layout.  The launches
-    made here are not counted: the main path's count was read before."""
-    from repro_torch.kernels.window_pack import (pack_window,
-                                                 pack_window_reference)
+    """The round's front (``pack_decision_rows``, the fused window-pack
+    kernel) on the inputs the device engine's main path gives it: one more
+    greedy rollout records every deciding round's operands; each round is
+    held against the plain composite (``front_check``), and the round with
+    the median number of waiting jobs is timed (L2 flushed): the kernel,
+    the composite with one event pair around it, and the host time to
+    issue each.  The front packs K = W slots, or K = Q for the attention
+    layout.  The launches made here are not counted: the main path's count
+    was read before."""
+    from repro_torch.kernels.window_pack import (pack_decision_rows,
+                                                 pack_decision_rows_reference)
     from repro_torch.sim import device as device_mod
     calls = []
 
-    def recording(waiting, feats, *, window):
-        calls.append((waiting.clone(), feats, window))
-        return pack_window(waiting, feats, window=window)
+    def recording(spec, **args):
+        calls.append((spec, {k: v if v is None or k in ROLLOUT_CONSTANT
+                             else v.clone() for k, v in args.items()}))
+        return pack_decision_rows(spec, **args)
 
-    device_mod.pack_window = recording
+    device_mod.pack_decision_rows = recording
     try:
         sim.rollout()
     finally:
-        device_mod.pack_window = pack_window
+        device_mod.pack_decision_rows = pack_decision_rows
     lay = sim.layout
     assert len(calls) == sim.stats.rounds > 0, (len(calls), sim.stats)
-    err = 0.0
-    for t, (waiting, feats, w) in enumerate(calls):
-        err = max(err, wp_check(waiting, feats, w, f"main path round {t}"))
-    n_wait = torch.stack([c[0].sum() for c in calls]).cpu()
-    t_med = int(torch.argsort(n_wait)[len(calls) // 2])
-    waiting, feats, w = calls[t_med]
-    n, j, f = feats.shape
+    err, n_wait = 0.0, []
+    for t, (spec, args) in enumerate(calls):
+        e, waiting = front_check(spec, args, f"{tag} round {t}")
+        err = max(err, e)
+        n_wait.append(waiting)
+    t_med = int(np.argsort(n_wait)[len(calls) // 2])
+    spec, args = calls[t_med]
+    n, j = args["ready"].shape
     k = lay.queue_cap if lay.state_module == "attention" else lay.window
-    assert (n, j, f, w) == (lay.n_envs, lay.n_jobs, lay.n_resources + 2,
-                            k), ((n, j, f, w), lay)
+    assert (n, j, spec.k, spec.mode) == (lay.n_envs, lay.n_jobs, k,
+                                         lay.state_module), (spec, lay)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
-    t_k = device_ms(lambda: pack_window(waiting, feats, window=w), flush)
-    t_p = device_ms(lambda: pack_window_reference(waiting, feats, window=w),
-                    flush)
-    b_ms, o_ms = wp_bound(waiting, f, w)
+
+    def run():
+        return pack_decision_rows(spec, **args)
+
+    def plain():
+        return pack_decision_rows_reference(spec, **args)
+
+    t_k, t_p = device_ms(run, flush), device_ms(plain, flush)
+    h_k, h_p = host_ms(run), host_ms(plain)
+    b_ms, o_ms = front_bound(spec, args, run())
     by = "bytes" if b_ms >= o_ms else "operations"
-    log(f"[{tag}] {len(calls)} rounds at N={n} J={j} F={f} "
-        f"W={w} bit-identical to the plain version; max abs err {err!r}")
-    log(f"[{tag}] round {t_med} ({int(n_wait[t_med])} jobs "
-        f"waiting, the median): kernel {t_k:.4f} ms  plain {t_p:.4f} ms  "
-        f"bound {max(b_ms, o_ms):.6f} ms ({by})")
-    return {"shape": (n, j, f, w), "rounds": len(calls), "max_abs_err": err,
-            "ms": t_k, "plain_ms": t_p, "bound_ms": max(b_ms, o_ms),
-            "bound_by": by}
+    log(f"[{tag}] {len(calls)} rounds at N={n} J={j} K={spec.k} "
+        f"U={spec.n_units}, rows of {spec.row_dim} ({spec.mode}): the "
+        f"fused front equals its plain composite bit for bit but the "
+        f"{len(spec.summed_columns)} summed columns (max abs err {err!r}, "
+        f"limits atol {FRONT_SUMMED_ATOL} rtol {FRONT_SUMMED_RTOL})")
+    log(f"[{tag}] round {t_med} ({int(n_wait[t_med])} jobs waiting, the "
+        f"median): kernel {t_k:.4f} ms  composite {t_p:.4f} ms (one event "
+        f"pair)  bound {max(b_ms, o_ms):.6f} ms ({by}); host issue: "
+        f"kernel {h_k:.4f} ms, composite {h_p:.4f} ms; no single PyTorch "
+        f"call computes it")
+    return {"shape": (n, j, spec.k), "rounds": len(calls),
+            "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+            "bound_ms": max(b_ms, o_ms), "bound_by": by, "host_ms": h_k,
+            "plain_host_ms": h_p}
 
 
 def forward_layers(net) -> list:
@@ -1182,9 +1293,12 @@ def phase_device_main(agent, trace=None, per_forward=MLP_FORWARD,
         if rep == 0:
             launches = launch_counts()
     st = ro.stats
+    # window_pack counts the fused round front (pack_decision_rows); the
+    # standalone pack is off the main path.
     per_round = {**per_forward, "window_pack": 1}
     assert st.rounds > 0 and launches == times(per_round, st.rounds), \
         (launches, st)
+    assert standalone_packs() == 0, standalone_packs()
     results = ro.results
     for r in results:
         row = r.metrics.as_row()
@@ -1374,14 +1488,20 @@ def _counted() -> dict:
     from repro_torch.kernels.fused_mlp import (fused_mlp, fused_mlp_dgrad,
                                                fused_mlp_wgrad)
     from repro_torch.kernels.ssd import ssd
-    from repro_torch.kernels.window_pack import pack_window
+    from repro_torch.kernels.window_pack import pack_decision_rows
     return dict(zip(KERNELS, (fused_mlp, fused_mlp_dgrad, fused_mlp_wgrad,
-                              pack_window, mha, mha_bwd_dq, mha_bwd_dkv,
-                              flash_attention, ssd)))
+                              pack_decision_rows, mha, mha_bwd_dq,
+                              mha_bwd_dkv, flash_attention, ssd)))
 
 
 def launch_counts() -> dict:
     return {k: w.launches for k, w in _counted().items()}
+
+
+def standalone_packs() -> int:
+    """Launches of the standalone window pack (``pack_window``)."""
+    from repro_torch.kernels.window_pack import pack_window
+    return pack_window.launches
 
 
 def flash_kernel_launches() -> dict:
@@ -1400,7 +1520,8 @@ def ssd_kernel_launches() -> dict:
 def reset_launch_counts() -> None:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd import ssd
-    for w in _counted().values():
+    from repro_torch.kernels.window_pack import pack_window
+    for w in (*_counted().values(), pack_window):
         w.launches = 0
     flash_attention.kernel_launches = dict.fromkeys(
         flash_attention.kernel_launches, 0)

@@ -3,10 +3,12 @@ the card (the JAX package's ``repro/sim/device.py``).
 
 ``DeviceSimulator`` runs N independent trace simulations over tensors on
 one device.  Each scheduling round advances lifecycle events (one
-coalesced-timestamp pop per environment), packs the first W waiting jobs
-per environment (``repro_torch.kernels.window_pack``), builds the packed
-decision rows on the device, scores them with the policy's
-``score_window`` stage (``repro_torch.core.policy_api``), and applies the
+coalesced-timestamp pop per environment), builds the front of the
+deciding round in one call (``repro_torch.kernels.window_pack``'s
+``pack_decision_rows``, one launch on the card: the queued mask, the free
+units, the first W waiting jobs and the packed decision rows), scores the
+rows with the policy's ``score_window`` stage
+(``repro_torch.core.policy_api``), and applies the
 selected action — immediate start with first-free unit allocation, or a
 reservation with EASY-backfill shadow accounting.  State never leaves the
 device between rounds; the host packs the traces up front and summarizes
@@ -63,11 +65,11 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..kernels.window_pack.ops import pack_window
+from ..kernels.window_pack import DecisionRowSpec, pack_decision_rows
 from ..obs.trace import Tracer
-from .cluster import TTF_HORIZON, Cluster, ResourceSpec
+from .cluster import Cluster, ResourceSpec
 from .job import Job
-from .lifecycle import (FAILED, FINISHED, PHANTOM_OWNER, FaultSchedule,
+from .lifecycle import (FAILED, FINISHED, FaultSchedule,
                         device_apply_drains, device_apply_ends,
                         device_apply_restores, device_attempt,
                         device_next_event, device_queued, device_ready,
@@ -205,14 +207,6 @@ class _SyncCounter:
 
 
 # ===================================================================== rounds
-def _segment_free(layout: DeviceLayout, release: torch.Tensor) -> torch.Tensor:
-    """Free-unit counts per resource, (N, R) float32 (reference:
-    ``_segment_free``)."""
-    cols = [(release[:, off:off + cap] == 0.0).sum(dim=1)
-            for off, cap in layout.segments]
-    return torch.stack(cols, dim=1).float()
-
-
 def _advance_events(layout: DeviceLayout, arrays, faults: DeviceFaults, st):
     """Batched event step: pop and apply ONE coalesced timestamp per env
     not inside a scheduling pass (reference: ``_advance_events``).
@@ -382,99 +376,18 @@ def _easy_backfill(layout: DeviceLayout, arrays, st, free, need, waiting,
     return out
 
 
-def _meas_goal(layout: DeviceLayout, arrays, st, free, waiting,
-               has_drains: bool):
-    """Measurement (utilization) + Eq. (1) goal, (N, R) each (reference:
-    ``_meas_goal``).  Drained (phantom-owned) units are neither busy nor
-    free, matching ``Cluster.utilization``."""
-    R = layout.n_resources
-    now = st["now"]
-    caps_f = arrays["caps_f"]
-    if has_drains:
-        phantom = torch.stack(
-            [(st["owner"][:, off:off + cap] == PHANTOM_OWNER).sum(dim=1)
-             for off, cap in layout.segments], dim=1).float()
-        meas = 1.0 - (free + phantom) / caps_f[None, :]
-    else:
-        meas = 1.0 - free / caps_f[None, :]
-    # Eq. (1) goal over the full waiting queue + running remainders.
-    running = st["started"] & ~st["finished"]
-    tw = (arrays["walltime"] * waiting
-          + (st["est_end"] - now[:, None]).clamp_min(0.0) * running)
-    acc = torch.einsum("nj,njr->nr", tw, arrays["demands"])
-    demand_time = acc / caps_f[None, :]
-    total = demand_time.sum(dim=1, keepdim=True)
-    goal = torch.where(total > 0, demand_time / total.clamp_min(1e-30),
-                       1.0 / R)
-    return meas, goal
-
-
-def _job_tokens(layout: DeviceLayout, st, win_feats, win_valid):
-    """Packed job slots -> [fracs(R), walltime_norm, queued_norm] tokens
-    (reference: ``_job_tokens``).  Invalid slots are all-zero."""
-    R = layout.n_resources
-    queued = ((st["now"][:, None] - win_feats[..., R + 1]) / layout.time_scale
-              * win_valid.float())
-    return torch.cat([win_feats[..., :R + 1], queued[..., None]], dim=-1)
-
-
-def _build_obs(layout: DeviceLayout, st, win_feats, win_valid, meas, goal):
-    """Packed decision rows [state | meas | goal | valid] on the device
-    (reference: ``_build_obs``, mirroring
-    ``encoding.encode_decision_row``; float32 throughout)."""
-    N, R, W = layout.n_envs, layout.n_resources, layout.window
-    ts = layout.time_scale
-    now = st["now"]
-    win = _job_tokens(layout, st, win_feats, win_valid)
-    parts = [win.reshape(N, W * (R + 2))]
-    # Unit sections use the encoding's reference section sizes; a cluster
-    # with fewer units fills the leading slots (encode_state semantics).
-    # The TTF_HORIZON clip keeps permanently drained units (release =
-    # +inf) out of the features, matching encode_state.
-    busy_all = st["release"] > 0.0
-    avail_all = (~busy_all).float()
-    ttf_all = torch.where(
-        busy_all, (st["release"] - now[:, None]).clamp(0.0, TTF_HORIZON),
-        0.0) / ts
-    for r, (off, cap) in enumerate(layout.segments):
-        k = min(cap, int(layout.enc_caps[r]))
-        pad = int(layout.enc_caps[r]) - k
-        avail = avail_all[:, off:off + k]
-        ttf = ttf_all[:, off:off + k]
-        if pad:
-            zeros = avail.new_zeros((N, pad))
-            avail = torch.cat([avail, zeros], dim=1)
-            ttf = torch.cat([ttf, zeros], dim=1)
-        parts.extend([avail, ttf])
-    return torch.cat(parts + [meas, goal, win_valid.float()], dim=1)
-
-
-def _build_obs_attention(layout: DeviceLayout, st, waiting, q_feats, q_valid,
-                         meas, goal):
-    """Attention-layout decision rows (reference: ``_build_obs_attention``,
-    mirroring ``encoding.encode_state`` with ``state_module="attention"``):
-    ``[Q*(R+2) tokens | queue_len | 2R context | meas | goal | valid(W)]``.
-    ``q_feats``/``q_valid`` pack the first ``queue_cap`` waiting jobs; the
-    leading W slots are exactly the action window."""
-    N, R, W = layout.n_envs, layout.n_resources, layout.window
-    Q = layout.queue_cap
-    now = st["now"]
-    tok = _job_tokens(layout, st, q_feats, q_valid)
-    qlen = waiting.sum(dim=1).clamp_max(float(Q))
-    ctx_cols = []
-    for off, cap in layout.segments:
-        seg = st["release"][:, off:off + cap]
-        busy = seg > 0.0
-        nb = busy.sum(dim=1).float()
-        ctx_cols.append(1.0 - nb / float(max(cap, 1)))       # free fraction
-        ttf_sum = torch.where(
-            busy, (seg - now[:, None]).clamp(0.0, TTF_HORIZON),
-            0.0).sum(dim=1)
-        ctx_cols.append(torch.where(nb > 0, ttf_sum / nb.clamp_min(1.0), 0.0)
-                        / layout.time_scale)                 # mean time-to-free
-    return torch.cat([tok.reshape(N, Q * (R + 2)), qlen[:, None],
-                      torch.stack(ctx_cols, dim=1), meas, goal,
-                      q_valid[:, :W].float()], dim=1)
+def _row_spec(layout: DeviceLayout, has_drains: bool) -> DecisionRowSpec:
+    """What the front of every deciding round computes in this rollout.
+    The attention module observes the first queue_cap waiting jobs; one
+    pack covers both the Q-token state and (its leading W slots) the
+    action window."""
+    attention = layout.state_module == "attention"
+    mode = layout.state_module if layout.requires_obs else "mask"
+    return DecisionRowSpec(
+        mode=mode, window=layout.window,
+        k=layout.queue_cap if attention else layout.window,
+        segments=layout.segments, enc_caps=layout.enc_caps,
+        time_scale=layout.time_scale, has_drains=has_drains)
 
 
 def _device_rollout(layout: DeviceLayout, score_fn, policy_state,
@@ -535,30 +448,19 @@ def _device_rollout(layout: DeviceLayout, score_fn, policy_state,
     feats = torch.cat([arrays["static_feats"],
                        arrays["submit_feat"][..., None]], dim=-1)
 
+    spec = _row_spec(layout, has_drains)
+
     def decide(s):
         now = s["now"]
-        waiting = device_queued(s["ready"], now, s["started"], s["finished"],
-                                s["failed"]).float()
-        n_waiting = waiting.sum(dim=1)
+        # One launch on the card: queued mask, free counts, pack, rows.
+        waiting, n_waiting, free, pk_idx, pk_valid, obs = pack_decision_rows(
+            spec, ready=s["ready"], now=now, started=s["started"],
+            finished=s["finished"], failed=s["failed"], release=s["release"],
+            est_end=s["est_end"], owner=s["owner"] if has_drains else None,
+            feats=feats, walltime=arrays["walltime"],
+            demands=arrays["demands"], caps_f=arrays["caps_f"])
         need = s["in_pass"] & (n_waiting > 0) & ~s["done"]
-        free = _segment_free(layout, s["release"])
-        # The attention module observes the first queue_cap waiting jobs;
-        # one pack covers both the Q-token state and (its leading W slots)
-        # the action window.
-        attention = layout.state_module == "attention"
-        K = layout.queue_cap if attention else W
-        pk_feats, pk_idx, pk_valid = pack_window(waiting, feats, window=K)
         win_idx, win_valid = pk_idx[:, :W], pk_valid[:, :W]
-        if not layout.requires_obs:
-            obs = win_valid.float()
-        else:
-            meas, goal = _meas_goal(layout, arrays, s, free, waiting,
-                                    has_drains)
-            if attention:
-                obs = _build_obs_attention(layout, s, waiting, pk_feats,
-                                           pk_valid, meas, goal)
-            else:
-                obs = _build_obs(layout, s, pk_feats, pk_valid, meas, goal)
         # Jobs a host Simulator would drop from the observable window this
         # decision (ScheduleMetrics.truncated_jobs; the attention module
         # still counts overflow past W, so both modules report the same

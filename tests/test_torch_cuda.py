@@ -193,13 +193,80 @@ def test_window_pack_rejects_and_never_falls_back(cuda):
         pack_window(waiting.double(), feats.double(), window=4)
 
 
+# ------------------------------------------------------------ round front
+# (mode, N, J, caps, enc_caps, W, K, drains): cells (c) and (f) at Theta's
+# widths, then N up to 512 with drains, the encoding's sections above and
+# below the capacity, K > J, three resources, a long job axis.
+FRONT_GRID = [
+    ("mlp", 64, 358, (4392, 1293), (4392, 1293), 10, 10, False),
+    ("attention", 64, 445, (4392, 1293), (4392, 1293), 10, 128, False),
+    ("mlp", 512, 300, (64, 32), (80, 16), 10, 10, True),
+    ("attention", 512, 100, (64, 32), (64, 32), 10, 128, True),
+    ("mask", 512, 700, (64, 32), (64, 32), 10, 10, True),
+    ("mlp", 3, 40, (16, 8, 5), (12, 10, 5), 4, 4, True),
+    ("attention", 5, 1000, (100,), (100,), 10, 16, False),
+]
+
+
+@pytest.mark.parametrize("mode,n,j,caps,enc_caps,w,k,drains", FRONT_GRID)
+@pytest.mark.parametrize("density", [0.0, 0.05, 0.4, 1.0])
+def test_decision_rows_kernel_matches_composite(cuda, mode, n, j, caps,
+                                                enc_caps, w, k, drains,
+                                                density):
+    """The fused front against its plain composite on the card: bit for
+    bit but the summed columns (goal, attention mean TTF), within
+    atol 1e-6, rtol 1e-5 (sums in another order); one launch a call, and
+    two calls equal bit for bit."""
+    from _decision_rows import assert_same_front, decision_state, front_spec
+
+    from repro_torch.kernels.window_pack import (pack_decision_rows,
+                                                 pack_decision_rows_reference)
+    ts = 3600.0 if mode == "attention" else 86400.0
+    spec = front_spec(mode, caps, enc_caps, w, k, drains, ts)
+    state = {name: None if v is None else torch.from_numpy(v).to(cuda)
+             for name, v in decision_state(n, j, caps, density,
+                                           drains=drains, seed=n + j,
+                                           time_scale=ts).items()}
+    launches = pack_decision_rows.launches
+    out = pack_decision_rows(spec, **state)
+    again = pack_decision_rows(spec, **state)
+    ref = pack_decision_rows_reference(spec, **state)
+    torch.cuda.synchronize()
+    assert pack_decision_rows.launches == launches + 2
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert_same_front(spec, [t.cpu().numpy() for t in out],
+                      [t.cpu().numpy() for t in ref])
+
+
+def test_decision_rows_kernel_rejects_and_never_falls_back(cuda):
+    from _decision_rows import decision_state, front_spec
+
+    from repro_torch.kernels.window_pack import pack_decision_rows
+    spec = front_spec("mlp", (16, 8), (16, 8), 10, 10, False)
+    state = {name: None if v is None else torch.from_numpy(v).to(cuda)
+             for name, v in decision_state(2, 20, (16, 8), 0.5).items()}
+    launches = pack_decision_rows.launches
+    for change, exc, match in [
+            ({"feats": state["feats"].transpose(0, 1).contiguous()
+              .transpose(0, 1)}, ValueError, "contiguous"),
+            ({"release": state["release"].cpu()}, ValueError,
+             "different devices"),
+            ({"ready": state["ready"].double()}, TypeError, "ready must be"),
+            ({"owner": torch.zeros(2, 24, dtype=torch.int32, device=cuda)},
+             ValueError, "drains")]:
+        with pytest.raises(exc, match=match):
+            pack_decision_rows(spec, **{**state, **change})
+    assert pack_decision_rows.launches == launches
+
+
 # ------------------------------------------------------------ device engine
 def test_device_rollout_on_the_card_matches_plain_backend(cuda):
     """A small agent's device rollout on the card: the kernel backend
-    decides as the plain backend does, with one window pack and 13 dense
-    launches per deciding round."""
+    decides as the plain backend does, with one launch of the fused round
+    front (and no standalone window pack) and 13 dense launches per
+    deciding round."""
     from repro_torch.core import AgentConfig, MRSchAgent
-    from repro_torch.kernels.window_pack import pack_window
+    from repro_torch.kernels.window_pack import pack_decision_rows, pack_window
     from repro_torch.sim import DeviceSimulator, Job, ResourceSpec
     res = [ResourceSpec("node", 16), ResourceSpec("bb", 8)]
     agent = MRSchAgent(res, AgentConfig(state_hidden=(64, 32), state_out=16,
@@ -216,9 +283,11 @@ def test_device_rollout_on_the_card_matches_plain_backend(cuda):
                              "bb": int(rng.integers(0, 6))}))
         jobsets.append(jobs)
     sim = DeviceSimulator(res, jobsets, agent)
-    pack_window.launches = fused_mlp.launches = 0
+    pack_window.launches = pack_decision_rows.launches = 0
+    fused_mlp.launches = 0
     ro_k = sim.rollout()
-    assert pack_window.launches == ro_k.stats.rounds > 0
+    assert pack_decision_rows.launches == ro_k.stats.rounds > 0
+    assert pack_window.launches == 0
     assert fused_mlp.launches == 13 * ro_k.stats.rounds
     agent.set_backend("torch")
     ro_t = sim.rollout()
