@@ -118,10 +118,36 @@ prints its wall seconds:
    bounds, plain versions and (B7) SDPA
    with ``is_causal`` (the library yardstick, which the port never calls);
 16. LM widths: gemma-2b (dh 256, MQA; depth cut to 2 of 18 layers) and
-   mamba2-1.3b (N 128; 4 of 48) at full width through the checks of 15.
+   mamba2-1.3b (N 128; 4 of 48) at full width through the checks of 15;
+17. the lockstep engine (run after 13): ``run_traces`` of a paper-width
+   agent (seed 0, as in 6) over the full-scale S1 traces of seeds 1-8 as
+   eight lanes, against the sequential ``run_trace`` of each (every
+   ``SimResult``, each job's start and end, equal); exactly 13 fused-MLP
+   launches a round; ``VectorStats``; both engines' decisions/s; then
+   every batched row's action values (B1 at M = the round's rows padded
+   to 1, 2, 4 or 8) equal to the M = 1 forward's bit for bit, under a
+   top-2-margin guard;
+18. lockstep replay through the service: ``ServiceSim.run_traces`` over
+   the same traces (results equal to 17's), its batch-size mix, and
+   sampled served rows on the kernel and the plain backend as in 6;
+19. vectorised training: ``train_agent_vectorized`` of a fresh
+   paper-width agent (paper defaults) over ``build_train_mix`` of S1-S4
+   x seeds 1-2 (2 days at 160 jobs/day) on eight lanes at 1.0, 0.75 and
+   0.5 of the cluster: exactly 13 forward, 10 dgrad and 13 wgrad
+   launches a step plus 13 forward launches a round with an exploiting
+   row (found by replaying each round's epsilon draws on a copy of the
+   rng), finite losses and norms, every parameter moved, one step on
+   both backends as in 10, collection decisions/s beside 10's sequential
+   figure;
+20. attention vectorised training: the attention agent of 12 (starting
+   at epsilon 0.5, so rounds mix exploring and exploiting rows) on four
+   lanes of 12's traces (seeds 1-4) with a train step every round, the
+   checks of 19 with 25/21/25 + 2/2/2 launches a step and 25 + 2 a
+   forward.
 
 The line before the last is a JSON summary of the kernels (B1's times
-are the 13 DFP layers' at M = 64; ``window_pack``'s are the fused round
+are the 13 DFP layers' at M = 64; B1, B2, B3, B5 and B6 count the
+launches of 17-20 too; ``window_pack``'s are the fused round
 front's on the MLP path's median round, its plain time the composite's,
 its launches both device paths'), B7 as two
 entries: ``flash_attention`` (``flash_fwd_sm90.cu``, bfloat16; its launches
@@ -132,6 +158,7 @@ CUDA device the script exits non-zero before printing either.
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
 import statistics
@@ -924,13 +951,47 @@ class SampledPolicy:
         return action
 
 
+def check_served_rows(agent, sampled: list) -> tuple:
+    """Served rows ``(row, action)`` scored on the kernel and the plain
+    backend on the card, in service-sized batches: the values within 2e-4
+    of the largest, and where the top-2 margin exceeds that tolerance the
+    same argmax, which the service also served.  Returns (max abs error,
+    tolerance, rows with a decisive margin)."""
+    from repro_torch.core.dfp import action_values
+    sd, m = agent.enc.state_dim, agent.enc.n_resources
+    dfp_torch = replace(agent.dfp, backend="torch")
+    rows = torch.from_numpy(np.stack([r for r, _ in sampled])).to(agent.device)
+    served = np.asarray([a for _, a in sampled])
+    u_k, u_t = [], []
+    for i in range(0, rows.shape[0], 16):            # service-sized batches
+        chunk = rows[i:i + 16]
+        args = (chunk[:, :sd].contiguous(), chunk[:, sd:sd + m].contiguous(),
+                chunk[:, sd + m:sd + 2 * m].contiguous())
+        u_k.append(action_values(agent.net, agent.dfp, *args))
+        u_t.append(action_values(agent.net, dfp_torch, *args))
+    valid = rows[:, sd + 2 * m:] > 0.5
+    u_k = torch.where(valid, torch.cat(u_k), -torch.inf).cpu().numpy()
+    u_t = torch.where(valid, torch.cat(u_t), -torch.inf).cpu().numpy()
+    fin = np.isfinite(u_t)
+    assert (np.isfinite(u_k) == fin).all()
+    scale = max(1.0, float(np.abs(u_t[fin]).max()))
+    tol = 2e-4 * scale
+    err = float(np.abs(u_k[fin] - u_t[fin]).max())
+    assert err <= tol, f"kernel vs torch action values: {err} > {tol}"
+    top2 = np.sort(np.where(fin, u_t, -np.inf), axis=1)[:, -2:]
+    margin = top2[:, 1] - top2[:, 0]                 # inf with one valid slot
+    decisive = margin > tol
+    assert (u_k.argmax(1)[decisive] == u_t.argmax(1)[decisive]).all()
+    assert (served[decisive] == u_t.argmax(1)[decisive]).all()
+    return err, tol, int(decisive.sum())
+
+
 def phase_main_path(agent, trace=None, per_forward=MLP_FORWARD,
                     every=(25, 50), tag="main") -> dict:
     """The decision service: one client replays the trace of seed 0, then
     eight client threads the traces of seeds 1-8 (``trace(seed)``, by
     default ``s1_trace``); ``every`` sets which served rows of each are
     held against the plain backend."""
-    from repro_torch.core.dfp import action_values
     from repro_torch.serve import DecisionService, ServeConfig, ServiceSim
 
     trace = trace or s1_trace
@@ -1002,33 +1063,7 @@ def phase_main_path(agent, trace=None, per_forward=MLP_FORWARD,
     hist_b = {w: c - hist_a.get(w, 0) for w, c in stats["batch_hist"].items()
               if c - hist_a.get(w, 0)}
 
-    # Sampled served rows: kernel backend vs plain backend on the card.
-    sd, m = agent.enc.state_dim, agent.enc.n_resources
-    dfp_torch = replace(agent.dfp, backend="torch")
-    rows = torch.from_numpy(np.stack([r for r, _ in sampled])).to(agent.device)
-    served = np.asarray([a for _, a in sampled])
-    u_k, u_t = [], []
-    for i in range(0, rows.shape[0], 16):            # service-sized batches
-        chunk = rows[i:i + 16]
-        args = (chunk[:, :sd].contiguous(), chunk[:, sd:sd + m].contiguous(),
-                chunk[:, sd + m:sd + 2 * m].contiguous())
-        u_k.append(action_values(agent.net, agent.dfp, *args))
-        u_t.append(action_values(agent.net, dfp_torch, *args))
-    valid = rows[:, sd + 2 * m:] > 0.5
-    u_k = torch.where(valid, torch.cat(u_k), -torch.inf).cpu().numpy()
-    u_t = torch.where(valid, torch.cat(u_t), -torch.inf).cpu().numpy()
-    fin = np.isfinite(u_t)
-    assert (np.isfinite(u_k) == fin).all()
-    scale = max(1.0, float(np.abs(u_t[fin]).max()))
-    tol = 2e-4 * scale
-    err = float(np.abs(u_k[fin] - u_t[fin]).max())
-    assert err <= tol, f"kernel vs torch action values: {err} > {tol}"
-    top2 = np.sort(np.where(fin, u_t, -np.inf), axis=1)[:, -2:]
-    margin = top2[:, 1] - top2[:, 0]                 # inf with one valid slot
-    decisive = margin > tol
-    assert (u_k.argmax(1)[decisive] == u_t.argmax(1)[decisive]).all()
-    assert (served[decisive] == u_t.argmax(1)[decisive]).all()
-
+    err, tol, decisive = check_served_rows(agent, sampled)
     lat = np.asarray(lat_a + lat_b) * 1e3
     out = {
         "launches": launches, "counts": counts, "forwards": forwards,
@@ -1044,7 +1079,7 @@ def phase_main_path(agent, trace=None, per_forward=MLP_FORWARD,
         "p50_ms": float(np.percentile(lat, 50)),
         "p99_ms": float(np.percentile(lat, 99)),
         "batch_hist_a": hist_a, "batch_hist_b": hist_b,
-        "sampled": int(rows.shape[0]), "decisive": int(decisive.sum()),
+        "sampled": len(sampled), "decisive": decisive,
         "u_err": err, "u_tol": tol, "metrics_a": res_a.metrics.as_row(),
     }
     per = ", ".join(f"{k} {v}" for k, v in per_forward.items())
@@ -1534,21 +1569,10 @@ def times(per: dict, n: int) -> dict:
     return {k: per.get(k, 0) * n for k in KERNELS}
 
 
-def phase_training(config=None, trace=None, per_step=MLP_STEP,
-                   per_forward=MLP_FORWARD, tag="train") -> tuple:
-    """Sequential DFP training at full width: the training path, by default
-    of the paper-width MLP agent on ``s1_trace``.  Returns the path's
-    launch counts and the trained agent."""
-    from repro_torch.convert import leaves
-    from repro_torch.core import AgentConfig, MRSchAgent, train_agent
-    trace = trace or s1_trace
-    traces = [trace(seed) for seed in TRAIN_SEEDS]
-    res = traces[0][0]
-    agent = MRSchAgent(res, config or AgentConfig(seed=0))
-    cfg = agent.config
-    assert (cfg.batch_size, cfg.grad_steps_per_episode, cfg.lr,
-            cfg.grad_clip) == (64, 64, 1e-4, 10.0), cfg
-    before = [p.detach().clone() for _, p in leaves(agent.net)]
+def time_bursts(agent) -> list:
+    """Wrap ``agent.train_steps`` (until ``del agent.train_steps``) so
+    every burst's steps, wall time, loss, gradient norm and launches are
+    kept in the returned list."""
     bursts = []
     train_steps = agent.train_steps
 
@@ -1563,6 +1587,25 @@ def phase_training(config=None, trace=None, per_step=MLP_STEP,
         return loss
 
     agent.train_steps = timed_burst
+    return bursts
+
+
+def phase_training(config=None, trace=None, per_step=MLP_STEP,
+                   per_forward=MLP_FORWARD, tag="train") -> tuple:
+    """Sequential DFP training at full width: the training path, by default
+    of the paper-width MLP agent on ``s1_trace``.  Returns the path's
+    launch counts, the trained agent and its collection decisions/s."""
+    from repro_torch.convert import leaves
+    from repro_torch.core import AgentConfig, MRSchAgent, train_agent
+    trace = trace or s1_trace
+    traces = [trace(seed) for seed in TRAIN_SEEDS]
+    res = traces[0][0]
+    agent = MRSchAgent(res, config or AgentConfig(seed=0))
+    cfg = agent.config
+    assert (cfg.batch_size, cfg.grad_steps_per_episode, cfg.lr,
+            cfg.grad_clip) == (64, 64, 1e-4, 10.0), cfg
+    before = [p.detach().clone() for _, p in leaves(agent.net)]
+    bursts = time_bursts(agent)
     torch.cuda.synchronize()
     reset_launch_counts()
     log_ = train_agent(agent, res, [j for _, j in traces])
@@ -1603,7 +1646,7 @@ def phase_training(config=None, trace=None, per_step=MLP_STEP,
     log(f"[{tag}] collection: {log_.decisions} decisions in {collect_s:.3f} "
         f"s = {log_.decisions / collect_s:.1f} decisions/s; all "
         f"{len(moved)} parameters moved")
-    return launches, agent
+    return launches, agent, log_.decisions / collect_s
 
 
 def batch_tensors(agent, rng) -> dict:
@@ -1612,17 +1655,13 @@ def batch_tensors(agent, rng) -> dict:
     return {k: torch.from_numpy(v).to(agent.device) for k, v in sample.items()}
 
 
-def phase_training_parity(agent, trace=None, per_step=MLP_STEP,
-                          tag="train parity") -> None:
+def check_step_parity(agent, per_step: dict, tag: str) -> None:
     """One train step's loss and gradients on the kernel and the plain
-    backend, from the same weights and minibatch; then a greedy
-    ``evaluate`` of the trained agent on both backends, on the trace of
-    the next seed (``trace``, by default ``s1_trace``)."""
+    backend, from the same weights and a replay minibatch: the kernel
+    step launches ``per_step``; the loss within rtol 1e-4 and every
+    gradient leaf within rtol 1e-3, atol 1e-4."""
     from repro_torch.convert import leaves
-    from repro_torch.core import evaluate
-    from repro_torch.core.dfp import action_values, loss_fn
-    from repro_torch.core.encoding import (decision_row_dim,
-                                           encode_decision_row)
+    from repro_torch.core.dfp import loss_fn
     batch = batch_tensors(agent, np.random.default_rng(11))
     params = [p for _, p in leaves(agent.net)]
     dfp_torch = replace(agent.dfp, backend="torch")
@@ -1642,6 +1681,19 @@ def phase_training_parity(agent, trace=None, per_step=MLP_STEP,
         f"{loss_k.item()!r} vs {loss_t.item()!r}; {len(params)} gradient "
         f"leaves within rtol 1e-3, atol 1e-4 (max abs diff {grad_err!r})")
 
+
+def phase_training_parity(agent, trace=None, per_step=MLP_STEP,
+                          tag="train parity") -> None:
+    """One train step's loss and gradients on the kernel and the plain
+    backend (``check_step_parity``); then a greedy ``evaluate`` of the
+    trained agent on both backends, on the trace of the next seed
+    (``trace``, by default ``s1_trace``)."""
+    from repro_torch.core import evaluate
+    from repro_torch.core.dfp import action_values
+    from repro_torch.core.encoding import (decision_row_dim,
+                                           encode_decision_row)
+    check_step_parity(agent, per_step, tag)
+    dfp_torch = replace(agent.dfp, backend="torch")
     res, jobs = (trace or s1_trace)(TRAIN_SEEDS[-1] + 1)
     w = agent.config.window
     runs = {}
@@ -2058,6 +2110,284 @@ def phase_attention_main_path(agent, sim) -> dict:
 
 
 # ------------------------------------------------------- LM zoo: B7 and B8
+# --------------------------------------------- the lockstep (vector) engine
+VECTOR_SEEDS = tuple(range(1, 9))      # the eight S1 lanes of phases 17-18
+VECTOR_MIX = dict(scenarios=("S1", "S2", "S3", "S4"), seeds=(1, 2), n_envs=8,
+                  resource_scales=(1.0, 0.75, 0.5))
+ATTN_VECTOR_SEEDS = (1, 2, 3, 4)       # phase 20's lanes (attn_trace)
+# Phase 20's agent starts mid-curriculum: at the paper's eps_start of 1.0
+# almost every row explores, and no round would run a batched forward.
+ATTN_VECTOR_EPSILON = 0.5
+
+
+def same_results(a, b) -> bool:
+    """The metrics row, decisions, unstarted jobs and every job's start
+    and end."""
+    return (a.metrics.as_row() == b.metrics.as_row()
+            and a.decisions == b.decisions
+            and a.n_unstarted == b.n_unstarted
+            and [(j.jid, j.start, j.end) for j in a.jobs]
+            == [(j.jid, j.start, j.end) for j in b.jobs])
+
+
+def packed_values(agent, rows: torch.Tensor) -> torch.Tensor:
+    """Action values of packed decision rows on the agent's backend, the
+    invalid slots at -inf."""
+    from repro_torch.core.dfp import action_values
+    sd, m = agent.enc.state_dim, agent.enc.n_resources
+    u = action_values(agent.net, agent.dfp, rows[:, :sd].contiguous(),
+                      rows[:, sd:sd + m].contiguous(),
+                      rows[:, sd + m:sd + 2 * m].contiguous())
+    return torch.where(rows[:, sd + 2 * m:] > 0.5, u, -torch.inf)
+
+
+def phase_vector_replay(agent) -> tuple:
+    """Greedy lockstep replay: the eight S1 traces of seeds 1-8 as eight
+    lanes of the engine ``run_traces`` builds, against the sequential
+    ``run_trace`` of each; then every batched row's values at its round's
+    width against the M = 1 forward the sequential engine runs, under a
+    top-2-margin guard.  Returns the launches, the vector results and
+    both engines' decisions/s."""
+    from repro_torch.core.encoding import pad_decision_rows
+    from repro_torch.sim import SimConfig, VectorSimulator, run_trace
+    traces = [s1_trace(seed) for seed in VECTOR_SEEDS]
+    res, jobsets = traces[0][0], [j for _, j in traces]
+    rounds: list = []
+    greedy_rows = agent._greedy_rows
+
+    def recording(rows):
+        rounds.append(rows.copy())
+        return greedy_rows(rows)
+
+    agent._greedy_rows = recording
+    vec = VectorSimulator.from_jobsets(res, jobsets, agent,
+                                       SimConfig.for_engine("vector"))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = vec.run()
+    wall_v = time.perf_counter() - t0
+    del agent._greedy_rows
+    torch.cuda.synchronize()
+    counts_v = launch_counts()
+    st = vec.stats
+    assert st.rounds == st.policy_calls == len(rounds), (st, len(rounds))
+    assert st.decisions == sum(len(r) for r in rounds) == \
+        sum(r.decisions for r in results)
+    assert st.max_batch == max(len(r) for r in rounds) == len(jobsets), st
+    assert counts_v == times(MLP_FORWARD, st.rounds), (counts_v, st.rounds)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    seq = [run_trace(res, jobs, agent) for jobs in jobsets]
+    wall_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts_s = launch_counts()
+    assert counts_s == times(MLP_FORWARD, st.decisions), counts_s
+    for i, (a, b) in enumerate(zip(results, seq)):
+        assert same_results(a, b), f"lane {i}: vector != sequential"
+        assert a.decisions > 0 and a.n_unstarted == 0, (i, a.n_unstarted)
+
+    # Each batched row against the M = 1 forward, and the top-2 margin of
+    # every row against the largest difference between the two.
+    worst, diffs, margins, n_rows = 0.0, [], [], 0
+    with torch.no_grad():
+        for rows in rounds:
+            n = len(rows)
+            width = 1 << max(n - 1, 0).bit_length()
+            packed = torch.from_numpy(
+                pad_decision_rows(rows, width, agent.enc)).to(agent.device)
+            u_b = packed_values(agent, packed)[:n]
+            u_1 = torch.cat([packed_values(agent, packed[i:i + 1])
+                             for i in range(n)])
+            fin = torch.isfinite(u_b)
+            assert torch.equal(fin, torch.isfinite(u_1))
+            d = torch.where(fin, (u_b - u_1).abs(), 0.0).amax(1)
+            top2 = torch.topk(u_b, 2, dim=1).values
+            margins.append((top2[:, 0] - top2[:, 1]).cpu())
+            diffs.append(d.cpu())
+            worst = max(worst, float(u_b[fin].abs().max()))
+            n_rows += n
+    margins, diffs = torch.cat(margins).numpy(), torch.cat(diffs).numpy()
+    flips = np.flatnonzero(margins <= diffs)
+    assert not len(flips), (f"near-tie: {len(flips)} batched rows whose "
+                            f"top-2 margin is within their M = 1 difference, "
+                            f"first {int(flips[0])}")
+    assert not diffs.any(), (
+        f"batched rows differ from the M = 1 forward: max {diffs.max()!r} "
+        f"over {int((diffs > 0).sum())} rows")
+    tol = 2e-4 * max(1.0, worst)
+    contested = np.isfinite(margins)
+    widths = np.bincount([len(r) for r in rounds]).tolist()
+    out = {"launches": counts_v["forward"] + counts_s["forward"],
+           "results": results, "dps_vector": st.decisions / wall_v,
+           "dps_sequential": st.decisions / wall_s}
+    log(f"[vector replay] run_traces over {len(jobsets)} full-scale S1 traces "
+        f"(seeds {VECTOR_SEEDS}) as {len(jobsets)} lanes: stats "
+        f"{json.dumps(st.as_dict())}; round widths (count by width) "
+        f"{widths}")
+    log(f"[vector replay] launches {json.dumps(counts_v)} = (forward 13) x "
+        f"{st.rounds} rounds; sequential run_trace of each: "
+        f"{json.dumps(counts_s)} = (forward 13) x {st.decisions} decisions")
+    log(f"[vector replay] every lane's SimResult (metrics, decisions, "
+        f"n_unstarted, each job's start and end) equals the sequential "
+        f"engine's; {st.decisions} decisions in {wall_v:.3f} s = "
+        f"{out['dps_vector']:.1f} decisions/s vector, {wall_s:.3f} s = "
+        f"{out['dps_sequential']:.1f} decisions/s sequential "
+        f"({out['dps_vector'] / out['dps_sequential']:.2f}x)")
+    log(f"[vector replay] all {n_rows} batched rows equal the M = 1 forward "
+        f"bit for bit; top-2 margin min {float(margins[contested].min())!r} "
+        f"over {int(contested.sum())} rows with two or more valid slots, "
+        f"{int((margins[contested] <= tol).sum())} of them within 2e-4 of the "
+        f"largest value ({tol!r})")
+    return out
+
+
+def phase_vector_service(agent, expect: list, every: int = 20) -> dict:
+    """Lockstep replay through the decision service: ``ServiceSim
+    .run_traces`` over phase 17's eight traces, each round's requests one
+    ``decide_many``; the results equal phase 17's, and every ``every``-th
+    served row scores the same on the kernel and the plain backend."""
+    from repro_torch.serve import DecisionService, ServeConfig, ServiceSim
+    jobsets = [s1_trace(seed)[1] for seed in VECTOR_SEEDS]
+    res = s1_trace(VECTOR_SEEDS[0])[0]
+    svc = DecisionService(agent, ServeConfig(max_batch=16))
+    reset_launch_counts()
+    svc.start()                                      # warm-up forwards
+    hist_warm = dict(svc.stats()["batch_hist"])
+    ssim = ServiceSim(svc, res)
+    assert ssim.sim_cfg.engine == "vector"
+    sampled, n_rows = [], [0]
+    select_batch = ssim.policy.select_batch
+
+    def sampling(ctxs):
+        actions = select_batch(ctxs)
+        for c, a in zip(ctxs, actions):
+            if n_rows[0] % every == 0:
+                sampled.append((svc._encode(c), int(a)))
+            n_rows[0] += 1
+        return actions
+
+    ssim.policy.select_batch = sampling
+    t0 = time.perf_counter()
+    results = ssim.run_traces(jobsets)
+    wall = time.perf_counter() - t0
+    svc.stop()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    stats = svc.stats()
+    forwards = stats["buckets"]["dispatches"]
+    assert forwards == len(svc._buckets.widths) + stats["batches"], stats
+    assert counts == times(MLP_FORWARD, forwards), (counts, forwards)
+    for i, (a, b) in enumerate(zip(results, expect, strict=True)):
+        assert same_results(a, b), f"lane {i}: service != direct lockstep"
+    decisions = sum(r.decisions for r in results)
+    assert stats["requests"] == decisions == n_rows[0]
+    hist = {w: c - hist_warm.get(w, 0) for w, c in stats["batch_hist"].items()
+            if c - hist_warm.get(w, 0)}
+    err, tol, decisive = check_served_rows(agent, sampled)
+    log(f"[vector service] ServiceSim.run_traces over the {len(jobsets)} "
+        f"traces: every SimResult equals the direct lockstep replay's; "
+        f"{decisions} decisions in {wall:.3f} s = {decisions / wall:.1f} "
+        f"decisions/s; batch sizes {hist}; launches {json.dumps(counts)} = "
+        f"(forward 13) x {forwards} forwards")
+    log(f"[vector service] sampled {len(sampled)} served rows: kernel vs "
+        f"torch action values max abs err {err!r} (tol {tol!r}); argmax equal "
+        f"on all {decisive} rows with top-2 margin > tol")
+    return {"launches": counts["forward"]}
+
+
+def phase_vector_training(agent, slots, config, per_step=MLP_STEP,
+                          per_forward=MLP_FORWARD, tag="vector train",
+                          seq_dps=None) -> tuple:
+    """``train_agent_vectorized`` over ``slots``: exactly ``per_step`` per
+    train step plus ``per_forward`` per round with an exploiting row
+    (found by replaying each round's ε draws on a copy of the agent's
+    rng), finite losses and norms, every parameter moved, one step held
+    on the kernel and the plain backend.  Returns (launch counts, the
+    training log)."""
+    from repro_torch.convert import leaves
+    from repro_torch.core import train_agent_vectorized
+    cfg = agent.config
+    assert (cfg.batch_size, cfg.grad_steps_per_episode, cfg.lr,
+            cfg.grad_clip) == (64, 64, 1e-4, 10.0), cfg
+    before = [p.detach().clone() for _, p in leaves(agent.net)]
+    bursts = time_bursts(agent)
+    widths, exploiting = [], [0]
+    select_batch = agent.select_batch
+
+    def counting(ctxs, slots=None):
+        rng = copy.deepcopy(agent.rng)
+        greedy = False
+        for c in ctxs:
+            if rng.uniform() < agent.epsilon:
+                rng.integers(0, min(len(c.window), cfg.window))
+            else:
+                greedy = True
+        exploiting[0] += greedy
+        widths.append(len(ctxs))
+        return select_batch(ctxs, slots=slots)
+
+    agent.select_batch = counting
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    log_ = train_agent_vectorized(agent, slots, config)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    del agent.train_steps, agent.select_batch
+
+    # A per-round step before the buffer fills a minibatch runs nothing.
+    idle = [b for b in bursts if b["loss"] is None]
+    bursts = [b for b in bursts if b["loss"] is not None]
+    assert all(b["launches"] == times({}, 0) for b in idle), idle
+    steps = sum(b["steps"] for b in bursts)
+    assert steps == int(agent.opt_state.step) > 0
+    assert log_.rounds == len(widths) > 0
+    for b in bursts:
+        assert b["launches"] == times(per_step, b["steps"]), b
+        assert math.isfinite(b["loss"]) and math.isfinite(b["grad_norm"]), b
+    expect = {k: times(per_step, steps)[k]
+              + times(per_forward, exploiting[0])[k] for k in KERNELS}
+    assert launches == expect, (launches, expect)
+    assert log_.episode_losses and all(map(math.isfinite,
+                                           log_.episode_losses))
+    assert all(map(math.isfinite, log_.round_losses))
+    assert len(log_.episodes) == sum(len(s.jobsets) for s in slots)
+    moved = [not torch.equal(a, p) for a, (_, p) in zip(before,
+                                                        leaves(agent.net))]
+    assert all(moved), f"{moved.count(False)} parameters did not move"
+    del before
+    check_step_parity(agent, per_step, tag + " parity")
+    burst_s = sum(b["wall_s"] for b in bursts)
+    collect_s = log_.wall_seconds - burst_s
+    full = [b for b in bursts if b["steps"] == cfg.grad_steps_per_episode]
+    per = ", ".join(f"{k} {v}" for k, v in per_step.items())
+    log(f"[{tag}] train_agent_vectorized over {len(slots)} lanes "
+        f"({', '.join(s.tag for s in slots)}): {len(log_.episodes)} episodes, "
+        f"{log_.decisions} decisions in {log_.rounds} rounds (widest "
+        f"{max(widths)}; {exploiting[0]} rounds with an exploiting row), "
+        f"{steps} train steps in {len(bursts)} bursts, "
+        f"{log_.wall_seconds:.3f} s; epsilon now {agent.epsilon!r}")
+    log(f"[{tag}] launches: {json.dumps(launches)} = ({per}) x {steps} steps "
+        f"+ {exploiting[0]} forwards; every burst exactly ({per}) per step; "
+        f"all {len(moved)} parameters moved")
+    if full:
+        ms = [b["wall_s"] / b["steps"] * 1e3 for b in full]
+        log(f"[{tag}] {len(full)} episode bursts of "
+            f"{cfg.grad_steps_per_episode} steps: {statistics.median(ms):.4f} "
+            f"ms per step (median; min {min(ms):.4f}, max {max(ms):.4f}; "
+            f"sampling and copy included); losses {log_.episode_losses!r}")
+    if log_.round_losses:
+        log(f"[{tag}] {len(log_.round_losses)} per-round steps, all finite: "
+            f"first {log_.round_losses[0]!r}, last {log_.round_losses[-1]!r}")
+    beside = ("" if seq_dps is None else
+              f" (sequential train_agent in this run: {seq_dps:.1f})")
+    log(f"[{tag}] collection: {log_.decisions} decisions in {collect_s:.3f} "
+        f"s = {log_.decisions / collect_s:.1f} decisions/s{beside}; "
+        f"bursts {burst_s:.3f} s")
+    return launches, log_
+
+
 def flash_inputs(b, sq, sk, h, kv, dh, dtype, gen) -> tuple:
     return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype)
                  for shape in ((b, sq, h, dh), (b, sk, kv, dh),
@@ -2664,11 +2994,12 @@ def main() -> int:
 
 
 def scheduling_paths() -> list:
-    """Phases 3-13: the scheduling system's paths and kernels B1-B6;
-    returns their entries of the kernels line."""
-    from repro_torch.core import AgentConfig, MRSchAgent
+    """Phases 3-13 and 17-20: the scheduling system's paths and kernels
+    B1-B6; returns their entries of the kernels line."""
+    from repro_torch.core import (AgentConfig, MRSchAgent, TrainConfig,
+                                  slots_from_jobsets)
     from repro_torch.nn import count_params
-    from repro_torch.workloads import ThetaConfig
+    from repro_torch.workloads import ThetaConfig, build_train_mix
     worst_f32 = timed("fused_mlp parity", phase_parity)
     wp_err = timed("window_pack parity", phase_window_pack_parity)
     mha_worst = timed("mha parity", phase_mha_parity)
@@ -2691,7 +3022,7 @@ def scheduling_paths() -> list:
     del sim
     bwd_worst = timed("fused_mlp backward parity", phase_backward_parity,
                       agent)
-    train_launches, trained = timed("training path", phase_training)
+    train_launches, trained, seq_dps = timed("training path", phase_training)
     timed("training parity", phase_training_parity, trained)
     timed("training timing", phase_training_timing, trained)
     bwd_main = timed("backward on the training path",
@@ -2715,7 +3046,7 @@ def scheduling_paths() -> list:
     attn_device, attn_sim = timed(
         "attention device-engine path", phase_device_main, attn, attn_trace,
         ATTN_FORWARD, "attn device", 3, False)
-    attn_launches, attn_trained = timed(
+    attn_launches, attn_trained, _ = timed(
         "attention training path", phase_training, attn_cfg, attn_trace,
         ATTN_STEP, ATTN_FORWARD, "attn train")
     timed("attention training parity", phase_training_parity, attn_trained,
@@ -2731,6 +3062,33 @@ def scheduling_paths() -> list:
 
     del attn_trained
     free_cuda()
+
+    # The lockstep engine: a fresh paper-width MLP agent (phase 6's seed-0
+    # weights) replays, then one trains on the heterogeneous mix; a fresh
+    # attention agent trains with a step every round.
+    agent = MRSchAgent(ThetaConfig().resources(), AgentConfig(seed=0))
+    vec = timed("vector replay", phase_vector_replay, agent)
+    vec_service = timed("vector service path", phase_vector_service, agent,
+                        vec["results"])
+    mix = build_train_mix(ThetaConfig(duration_days=2, jobs_per_day=160),
+                          **VECTOR_MIX)
+    agent = MRSchAgent(ThetaConfig().resources(), AgentConfig(seed=0))
+    vec_launches, _ = timed("vector training path", phase_vector_training,
+                            agent, mix, TrainConfig(n_envs=8), MLP_STEP,
+                            MLP_FORWARD, "vector train", seq_dps)
+    vec_replay_launches = vec["launches"]
+    del agent, mix, vec
+    lanes = [attn_trace(seed) for seed in ATTN_VECTOR_SEEDS]
+    attn = MRSchAgent(lanes[0][0], attn_cfg)
+    attn.epsilon = ATTN_VECTOR_EPSILON
+    attn_vec_launches, attn_log = timed(
+        "attention vector training path", phase_vector_training, attn,
+        slots_from_jobsets(lanes[0][0], [j for _, j in lanes], len(lanes)),
+        TrainConfig(n_envs=len(lanes), grad_steps_per_round=1), ATTN_STEP,
+        ATTN_FORWARD, "attn vector train")
+    assert attn_log.round_losses, "no per-round step ran"
+    del attn, lanes
+    free_cuda()
     # B1's times in the kernels line: the 13 DFP layers at M = 64, the
     # device engine's and training's rows (fused_mlp_fwd_m64_kernel).
     t_k, t_p, t_l, bnd, by = timing["sums"][64]
@@ -2740,7 +3098,9 @@ def scheduling_paths() -> list:
         "launches": (service["launches"] + device["launches"]["forward"]
                      + train_launches["forward"] + attn_service["launches"]
                      + attn_device["launches"]["forward"]
-                     + attn_launches["forward"]),
+                     + attn_launches["forward"] + vec_replay_launches
+                     + vec_service["launches"] + vec_launches["forward"]
+                     + attn_vec_launches["forward"]),
         "max_abs_err": worst_f32,
         "ms": t_k, "plain_ms": t_p, "bound_ms": bnd, "bound_by": by,
         "library_ms": t_l,
@@ -2757,7 +3117,8 @@ def scheduling_paths() -> list:
     }] + [{
         "name": f"fused_mlp_{kind}", "route": "cuda", "source": BWD_SOURCE,
         "replaces": replaces,
-        "launches": train_launches[kind] + attn_launches[kind],
+        "launches": (train_launches[kind] + attn_launches[kind]
+                     + vec_launches[kind] + attn_vec_launches[kind]),
         "max_abs_err": max(bwd_worst[kind], bwd_main[kind]["max_abs_err"]),
         "ms": bwd_main[kind]["ms"], "plain_ms": bwd_main[kind]["plain_ms"],
         "bound_ms": bwd_main[kind]["bound_ms"],
@@ -2768,7 +3129,8 @@ def scheduling_paths() -> list:
         "name": kind, "route": "cuda", "source": source,
         "replaces": replaces,
         "launches": (attn_service["counts"][key]
-                     + attn_device["launches"][key] + attn_launches[key]),
+                     + attn_device["launches"][key] + attn_launches[key]
+                     + attn_vec_launches[key]),
         "max_abs_err": max(mha_worst[kind], attn_main[kind]["max_abs_err"]),
         **{k: attn_main[kind][k] for k in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms")},

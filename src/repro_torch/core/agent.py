@@ -3,8 +3,10 @@
 Wraps the DFP network with the vector state encoding, the Eq. (1) dynamic
 goal vector, epsilon-greedy exploration, the episodic replay buffer and
 Adam training on the future-measurement MSE.  Implements the simulator's
-``SchedulingPolicy`` protocol (``select``, ε-greedy while ``training``)
-and the device stages of the ``Policy`` protocol
+``SchedulingPolicy`` protocol (``select``, ε-greedy while ``training``),
+the lockstep engine's batched stage (``select_batch``, ε-greedy and
+recorded per environment slot while ``training``) and the device stages
+of the ``Policy`` protocol
 (``init_state``/``score_window``) that the device rollout engine scores
 with.  ``save``/``load`` read and write the JAX package's ``.npz``
 format, so a file saved by either package loads in the other.
@@ -27,7 +29,7 @@ from .dfp import (DFPConfig, DFPNetwork, action_values, greedy_actions_packed,
 from .encoding import (EncodingConfig, decision_row_dim, encode_decision_row,
                        encode_measurement, encode_state, pad_decision_rows)
 from .goal import ctx_goal
-from .replay import EpisodeRecorder, ReplayBuffer
+from .replay import EpisodeRecorder, ReplayBuffer, VectorEpisodeRecorder
 
 
 def resolve_device(device=None) -> torch.device:
@@ -108,6 +110,7 @@ class MRSchAgent:
         self.opt_state = adam_init(self._params())
         self.replay = ReplayBuffer(config.offsets, config.buffer_rows)
         self.recorder = EpisodeRecorder()
+        self.vec_recorder = VectorEpisodeRecorder()
         self.rng = np.random.default_rng(config.seed)
         self.epsilon = config.eps_start
         self.training = False
@@ -171,14 +174,49 @@ class MRSchAgent:
             self.recorder.record(state, meas, goal, action)
         return action
 
-    def select_batch(self, ctxs: Sequence[SchedContext]) -> np.ndarray:
-        """Greedy actions for N pending decisions with ONE forward."""
-        feats = np.zeros((len(ctxs), decision_row_dim(self.enc,
-                                                      self.config.window)),
-                         dtype=np.float32)
+    def select_batch(self, ctxs: Sequence[SchedContext],
+                     slots: Optional[Sequence[int]] = None) -> np.ndarray:
+        """Actions for N pending decisions with ONE forward.
+
+        In evaluation mode the actions are greedy and ``slots`` is
+        ignored.  In training mode ``slots`` (one environment id per
+        context) is required: each row gets its own ε-greedy draw and its
+        transition is recorded into that environment's accumulator
+        (``vec_recorder``).  ``rng`` is consumed in row order — one
+        uniform draw per decision, plus one integer draw when exploring —
+        as ``select`` consumes it, so an N=1 batched rollout reproduces
+        sequential training bit for bit from the same seed.  The forward
+        runs over the exploiting rows only.
+        """
+        if self.training and slots is None:
+            raise RuntimeError(
+                "select_batch without env slots is evaluation-only: "
+                "training interleaves N environments, so each context "
+                "needs a slot id routing its transition to a per-env "
+                "episode accumulator — pass slots=[...] (the vectorised "
+                "trainer in repro_torch.core.train does this), or train "
+                "with Simulator.run per trace")
+        n = len(ctxs)
+        sd, m, a = self.enc.state_dim, self.enc.n_resources, self.config.window
+        feats = np.zeros((n, decision_row_dim(self.enc, a)), dtype=np.float32)
         for i, c in enumerate(ctxs):
-            encode_decision_row(self.enc, c, self.config.window, out=feats[i])
-        return self._greedy_rows(feats)
+            encode_decision_row(self.enc, c, a, out=feats[i])
+        if not self.training:
+            return self._greedy_rows(feats)
+        acts = np.zeros(n, dtype=np.int32)
+        explore = np.empty(n, dtype=bool)
+        for i, c in enumerate(ctxs):
+            explore[i] = self.rng.uniform() < self.epsilon
+            if explore[i]:
+                acts[i] = int(self.rng.integers(0, min(len(c.window), a)))
+        exploit = np.flatnonzero(~explore)
+        if exploit.size:
+            acts[exploit] = self._greedy_rows(feats[exploit])
+        for i, slot in enumerate(slots):
+            self.vec_recorder.record(
+                int(slot), feats[i, :sd].copy(), feats[i, sd:sd + m].copy(),
+                feats[i, sd + m:sd + 2 * m].copy(), int(acts[i]))
+        return acts
 
     def _greedy_rows(self, rows: np.ndarray) -> np.ndarray:
         """One forward over packed decision rows -> greedy actions.  Width
@@ -192,12 +230,23 @@ class MRSchAgent:
         return acts.cpu().numpy()[:n].astype(np.int32)
 
     # ---------------------------------------------------------------- train
-    def end_episode(self) -> Optional[float]:
+    def begin_vector_episodes(self, n_envs: int) -> None:
+        """Reset the per-environment accumulators for a batched rollout."""
+        self.vec_recorder = VectorEpisodeRecorder(n_envs)
+
+    def end_episode(self, slot: Optional[int] = None) -> Optional[float]:
         """Flush the recorded episode into the replay buffer; once the
         buffer holds a minibatch, run ``grad_steps_per_episode`` train
         steps and decay epsilon.  Returns the burst's mean loss, or None
-        when no step ran."""
-        ep = self.recorder.finish()
+        when no step ran.
+
+        ``slot=None`` closes the sequential recorder (``select`` path);
+        ``slot=i`` closes environment ``i``'s accumulator of a batched
+        rollout, so a lane that finishes mid-round trains the network
+        while the other lanes are still collecting.
+        """
+        ep = (self.recorder.finish() if slot is None
+              else self.vec_recorder.finish(slot))
         if ep is not None:
             self.replay.add(ep)
         if not self.training or self.replay.rows < self.config.batch_size:

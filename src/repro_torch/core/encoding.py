@@ -30,7 +30,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from ..sim.cluster import TTF_HORIZON
+from ..sim.cluster import TTF_HORIZON, Cluster
 from ..sim.job import Job
 from ..sim.simulator import SchedContext
 from .goal import ctx_goal
@@ -108,8 +108,8 @@ def encode_state(cfg: EncodingConfig, ctx: SchedContext,
 
     The layout is fixed by ``cfg.capacities`` so one network can observe
     heterogeneous environments: a context whose cluster has fewer units
-    than the reference (a scaled-down training lane in the JAX package)
-    fills only the leading unit slots of each resource section; the
+    than the reference (a scaled-down lane from
+    ``repro_torch.workloads.sweep.build_train_mix``) fills only the leading unit slots of each resource section; the
     absent units read as unavailable (availability bit 0, time-to-free
     0).  Demand fractions are normalized
     by the context's own cluster capacity, so "half the machine" means the
@@ -229,3 +229,17 @@ def pad_decision_rows(rows: np.ndarray, width: int,
     packed[:n] = rows
     packed[n:, cfg.state_dim + 2 * cfg.n_resources:] = 1.0
     return packed
+
+
+def encoding_for(cluster: Cluster, window: int,
+                 time_scale: float = DAY, state_module: str = "mlp",
+                 queue_cap: int = 0) -> EncodingConfig:
+    """The encoding of ``cluster``'s resources and capacities."""
+    return EncodingConfig(
+        window=window,
+        resource_names=tuple(cluster.names),
+        capacities=tuple(cluster.capacities[n] for n in cluster.names),
+        time_scale=time_scale,
+        state_module=state_module,
+        queue_cap=queue_cap,
+    )

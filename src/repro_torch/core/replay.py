@@ -6,8 +6,11 @@ reward, so experience stays grouped by episode: one row per scheduling
 decision — (state, measurement, goal, action) — and the targets
 f[tau, m] = m_{t+tau} - m_t are made at sample time, with the offsets
 that cross the episode's end masked out of the loss.  ``EpisodeRecorder``
-accumulates one trajectory; ``ReplayBuffer`` holds finished episodes up
-to a row budget and serves uniform minibatches.  Sampling draws from the
+accumulates one trajectory; ``VectorEpisodeRecorder`` keeps one
+accumulator per environment slot, so the lockstep engine
+(``repro_torch.sim.vector``) can collect N interleaved trajectories
+without mixing their future-delta targets; ``ReplayBuffer`` holds
+finished episodes up to a row budget and serves uniform minibatches.  Sampling draws from the
 caller's ``rng`` in the reference's order, so one seed gives the same
 minibatches in both packages.
 """
@@ -51,6 +54,39 @@ class EpisodeRecorder:
                      actions=np.asarray(self._a, np.int32))
         self._s, self._m, self._g, self._a = [], [], [], []
         return ep
+
+
+class VectorEpisodeRecorder:
+    """Per-environment episode accumulators for batched collection.
+
+    The lockstep engine interleaves decisions from N environments; routing
+    each transition to its own slot keeps every episode contiguous, so the
+    DFP future-measurement targets stay well defined.  Slots are created
+    on first use, so one recorder serves any batch width.
+    """
+
+    def __init__(self, n_envs: int = 0):
+        self._slots: Dict[int, EpisodeRecorder] = {
+            i: EpisodeRecorder() for i in range(n_envs)}
+
+    def slot(self, i: int) -> EpisodeRecorder:
+        rec = self._slots.get(i)
+        if rec is None:
+            rec = self._slots[i] = EpisodeRecorder()
+        return rec
+
+    def record(self, i: int, state, meas, goal, action: int) -> None:
+        self.slot(i).record(state, meas, goal, action)
+
+    def finish(self, i: int) -> Optional[Episode]:
+        """Close slot ``i``'s episode (None if nothing was recorded)."""
+        return self.slot(i).finish()
+
+    def pending_rows(self) -> int:
+        return sum(len(r) for r in self._slots.values())
+
+    def __len__(self) -> int:
+        return len(self._slots)
 
 
 class ReplayBuffer:

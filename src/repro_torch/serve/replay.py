@@ -3,12 +3,17 @@ decision service.
 
 ``ServicePolicy`` is a ``SchedulingPolicy`` facade whose ``select`` /
 ``select_batch`` route every decision through a ``DecisionService``, so
-the ``Simulator`` can be driven end to end through the serving stack.
-The service's decision function is the same packed greedy forward the
-agent uses, so a service-routed replay gives the same ``SimResult`` as a
-direct ``agent.select`` replay: the serving layer adds concurrency and
-batching, never different decisions.  (Lockstep replay of many traces and
-registry scenarios wait for the vector engine and the registry.)
+the ``Simulator`` and ``VectorSimulator`` — and every harness built on
+them — can be driven end to end through the serving stack.  The
+service's decision function is the same packed greedy forward the agent
+uses, so a service-routed replay gives the same ``SimResult`` as a direct
+``agent.select`` replay: the serving layer adds concurrency and batching,
+never different decisions.
+
+``ServiceSim`` bundles the cluster spec and the shared
+``SimConfig.for_engine`` plumbing (the constructor the sweep and drift
+harnesses use) into one replay entry point for traces and registry
+scenarios.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ import numpy as np
 from ..sim.cluster import ResourceSpec
 from ..sim.job import Job
 from ..sim.simulator import SchedContext, SimConfig, SimResult, Simulator
+from ..sim.vector import VectorSimulator
+from ..workloads.registry import build_jobs
 from .service import DecisionService
 
 
@@ -55,20 +62,33 @@ class ServicePolicy:
 
 
 class ServiceSim:
-    """Drive the simulator through a running decision service."""
+    """Drive the simulator(s) through a running decision service."""
 
     def __init__(self, service: DecisionService,
                  resources: Sequence[ResourceSpec], window: int = 10,
                  backfill: bool = True, track_latency: bool = False):
         self.service = service
         self.resources = list(resources)
-        self.sim_cfg = SimConfig.for_engine(window=window, backfill=backfill)
+        self.sim_cfg = SimConfig.for_engine("vector", window=window,
+                                            backfill=backfill)
         self.policy = ServicePolicy(service, track_latency=track_latency)
 
     def run_trace(self, jobs: Sequence[Job]) -> SimResult:
         """Sequential replay of one trace, every decision served."""
         return Simulator(self.resources, jobs, self.policy,
                          self.sim_cfg).run()
+
+    def run_traces(self, jobsets: Sequence[Sequence[Job]]) -> List[SimResult]:
+        """Lockstep replay of N traces; each round's decisions coalesce
+        into (at most) one service batch."""
+        vec = VectorSimulator.from_jobsets(self.resources, jobsets,
+                                           self.policy, self.sim_cfg)
+        return vec.run()
+
+    def run_scenario(self, name: str, theta, seed: int = 1,
+                     **overrides) -> SimResult:
+        """Replay one registry scenario through the service."""
+        return self.run_trace(build_jobs(name, theta, seed=seed, **overrides))
 
     @property
     def latencies_s(self) -> List[float]:

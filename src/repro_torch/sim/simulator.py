@@ -21,7 +21,9 @@ The decision step is *re-entrant*: ``next_decision()`` advances the event
 loop until a policy decision is required and returns the pending
 ``SchedContext``; ``post_action(a)`` applies the selection and resumes.
 ``run()`` is the synchronous adapter that drives a ``SchedulingPolicy``
-inline; the decision service drives the same API from client threads.
+inline, ``repro_torch.sim.vector.VectorSimulator`` interleaves many
+simulators through the same API so policy inference can be batched, and
+the decision service drives it from client threads.
 """
 from __future__ import annotations
 
@@ -63,8 +65,7 @@ class SchedulingPolicy(Protocol):
     def notify_reserved(self, job: Job, ctx: SchedContext) -> None: ...
 
 
-# The engines this package has so far; the JAX package also has "vector".
-ENGINES = ("sequential", "device")
+ENGINES = ("sequential", "vector", "device")
 
 # Application order for events coalesced at one timestamp.  Ends first
 # (a job finishing at t is NOT killed by a drain at t), then queue
@@ -77,21 +78,21 @@ class SimConfig:
     window: int = 10             # W, paper §III-C / §IV-C
     backfill: bool = True        # EASY backfilling
     max_events: int = 50_000_000
-    engine: str = "sequential"   # "sequential" | "device"
+    engine: str = "sequential"   # "sequential" | "vector" | "device"
     max_rounds: Optional[int] = None   # device engine round-budget override
 
     @classmethod
     def for_engine(cls, engine: str = "sequential", *, window: int = 10,
                    backfill: bool = True, max_events: Optional[int] = None,
                    max_rounds: Optional[int] = None) -> "SimConfig":
-        """The single validated constructor path.
+        """The single validated constructor path for all three engines.
 
-        Every harness that builds a simulator (``run_trace``,
-        service-routed replay, the device rollout) builds its
+        Every harness that fans traces over an engine (sweep, drift
+        phases, service-routed replay, the device rollout) builds its
         ``SimConfig`` here, so validation lands everywhere at once.
         ``max_rounds`` bounds the device engine's round loop (it raises
         if the budget proves too small rather than silently truncating);
-        the sequential engine ignores it.
+        the host engines ignore it.
         """
         if engine not in ENGINES:
             raise ValueError(
@@ -109,6 +110,16 @@ class SimConfig:
                 raise ValueError(f"max_rounds must be >= 1, got {max_rounds}")
             cfg.max_rounds = int(max_rounds)
         return cfg
+
+
+def sim_config(window: int = 10, backfill: bool = True,
+               max_events: Optional[int] = None,
+               engine: str = "sequential",
+               max_rounds: Optional[int] = None) -> SimConfig:
+    """Functional alias of ``SimConfig.for_engine`` (for callers of the
+    original ``(window, backfill)`` signature)."""
+    return SimConfig.for_engine(engine, window=window, backfill=backfill,
+                                max_events=max_events, max_rounds=max_rounds)
 
 
 @dataclass
@@ -151,7 +162,7 @@ class Simulator:
         self._pending_ctx: Optional[SchedContext] = None
         # mrsch.trace/v1 emission (docs/observability.md).  The default
         # NULL tracer keeps these paths allocation-free; ``env`` tags
-        # events when many simulators share one tracer.
+        # events when many simulators share one tracer (vector engine).
         self.tracer = tracer
         self.env = int(env)
 

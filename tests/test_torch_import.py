@@ -59,6 +59,11 @@ def test_scan_covers_every_slice():
                  "repro_torch.core.policies",
                  "repro_torch.core.replay",
                  "repro_torch.core.train",
+                 "repro_torch.sim.vector",
+                 "repro_torch.workloads.registry",
+                 "repro_torch.workloads.drift",
+                 "repro_torch.workloads.jobsets",
+                 "repro_torch.workloads.sweep",
                  "repro_torch.nn.optim",
                  "repro_torch.nn.queue_encoder",
                  "repro_torch.kernels.flash_attention.ops",

@@ -67,6 +67,7 @@ def test_sim_config_validation():
     with pytest.raises(ValueError, match="max_events"):
         SimConfig.for_engine(max_events=0)
     with pytest.raises(ValueError, match="engine"):
-        SimConfig.for_engine("vector")          # not ported yet
+        SimConfig.for_engine("warp")
+    assert SimConfig.for_engine("vector").engine == "vector"
     cfg = SimConfig.for_engine(window=5, backfill=False, max_events=10)
     assert (cfg.window, cfg.backfill, cfg.max_events) == (5, False, 10)
