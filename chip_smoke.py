@@ -143,11 +143,26 @@ prints its wall seconds:
    at epsilon 0.5, so rounds mix exploring and exploiting rows) on four
    lanes of 12's traces (seeds 1-4) with a train step every round, the
    checks of 19 with 25/21/25 + 2/2/2 launches a step and 25 + 2 a
-   forward.
+   forward; 19 and 20 also fill a ``MetricsRegistry``, whose episode and
+   decision totals must equal the ``TrainLog``'s;
+21. checkpoint, hot reload and telemetry: a second paper-width agent
+   (seed 13) saved with ``CheckpointManager.save_async`` (the caller's
+   copy timed, then the background write) and restored onto the card bit
+   for bit with no kernel launched; then the seed-0 agent serves one
+   client's S1 replay (as 6) behind a ``DecisionService`` with a metrics
+   registry and a recording tracer while a started ``CheckpointWatcher``
+   swaps in the seed-13 step, published midway by renaming it into the
+   watched directory: every decision before the swap equals the seed-0
+   agent's greedy choice and every one after it the seed-13 agent's
+   (top-2-margin guard as 6), 13 fused-MLP launches a forward, registry
+   requests equal to the decisions and one reload, one ``ckpt.reload``
+   event; the ms from the commit to the first decision on the new
+   weights; a profiler capture of one service forward shows 13
+   ``mrsch.kernel.fused_mlp`` ranges.
 
 The line before the last is a JSON summary of the kernels (B1's times
 are the 13 DFP layers' at M = 64; B1, B2, B3, B5 and B6 count the
-launches of 17-20 too; ``window_pack``'s are the fused round
+launches of 17-21 too; ``window_pack``'s are the fused round
 front's on the MLP path's median round, its plain time the composite's,
 its launches both device paths'), B7 as two
 entries: ``flash_attention`` (``flash_fwd_sm90.cu``, bfloat16; its launches
@@ -161,6 +176,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -2304,10 +2320,12 @@ def phase_vector_training(agent, slots, config, per_step=MLP_STEP,
     train step plus ``per_forward`` per round with an exploiting row
     (found by replaying each round's ε draws on a copy of the agent's
     rng), finite losses and norms, every parameter moved, one step held
-    on the kernel and the plain backend.  Returns (launch counts, the
-    training log)."""
+    on the kernel and the plain backend; a ``MetricsRegistry`` on the run
+    whose episode and decision totals equal the log's.  Returns (launch
+    counts, the training log)."""
     from repro_torch.convert import leaves
     from repro_torch.core import train_agent_vectorized
+    from repro_torch.obs import MetricsRegistry
     cfg = agent.config
     assert (cfg.batch_size, cfg.grad_steps_per_episode, cfg.lr,
             cfg.grad_clip) == (64, 64, 1e-4, 10.0), cfg
@@ -2331,10 +2349,20 @@ def phase_vector_training(agent, slots, config, per_step=MLP_STEP,
     agent.select_batch = counting
     torch.cuda.synchronize()
     reset_launch_counts()
-    log_ = train_agent_vectorized(agent, slots, config)
+    registry = MetricsRegistry()
+    log_ = train_agent_vectorized(agent, slots, config, registry=registry)
     torch.cuda.synchronize()
     launches = launch_counts()
     del agent.train_steps, agent.select_batch
+    snap = registry.snapshot()
+    episodes = sum(snap["train_episodes_total"].values())
+    decisions = sum(snap["train_decisions_total"].values())
+    assert episodes == len(log_.episodes) and decisions == log_.decisions, (
+        snap["train_episodes_total"], snap["train_decisions_total"])
+    lanes = [s for s in slots if s.jobsets]
+    assert sorted(snap["train_episodes_total"]) == sorted(
+        f'{{lane="{s.tag or f"env{i}"}"}}' for i, s in enumerate(lanes))
+    assert snap["train_epsilon"][""] == agent.epsilon
 
     # A per-round step before the buffer fills a minibatch runs nothing.
     idle = [b for b in bursts if b["loss"] is None]
@@ -2371,6 +2399,10 @@ def phase_vector_training(agent, slots, config, per_step=MLP_STEP,
     log(f"[{tag}] launches: {json.dumps(launches)} = ({per}) x {steps} steps "
         f"+ {exploiting[0]} forwards; every burst exactly ({per}) per step; "
         f"all {len(moved)} parameters moved")
+    log(f"[{tag}] registry: {episodes:.0f} episodes and {decisions:.0f} "
+        f"decisions over {len(snap['train_episodes_total'])} lanes, equal to "
+        f"the TrainLog's; train_loss {snap['train_loss']['']!r}, "
+        f"train_grad_norm {snap['train_grad_norm']['']!r}")
     if full:
         ms = [b["wall_s"] / b["steps"] * 1e3 for b in full]
         log(f"[{tag}] {len(full)} episode bursts of "
@@ -2386,6 +2418,195 @@ def phase_vector_training(agent, slots, config, per_step=MLP_STEP,
         f"s = {log_.decisions / collect_s:.1f} decisions/s{beside}; "
         f"bursts {burst_s:.3f} s")
     return launches, log_
+
+
+RELOAD_STEP = 23          # phase 21's checkpoint step of agent B
+RELOAD_AT = 100           # decisions served on agent A before the commit
+
+
+class ReloadPolicy:
+    """ServicePolicy that keeps every served row with its action and the
+    service's ``params_step`` read just before and just after the request,
+    and at decision ``commit_at`` publishes a committed checkpoint step by
+    renaming it into the watched directory (as the store commits)."""
+
+    def __init__(self, service, commit_at: int, src: str, dst: str):
+        from repro_torch.serve import ServicePolicy
+        self._inner = ServicePolicy(service)
+        self.service, self.commit_at, self.src, self.dst = (
+            service, commit_at, src, dst)
+        self.rows: list = []
+        self.t_commit = None
+
+    def select(self, ctx) -> int:
+        if len(self.rows) == self.commit_at:
+            os.rename(self.src, self.dst)
+            self.t_commit = time.perf_counter()
+        before = self.service.params_step
+        action = self._inner.select(ctx)
+        self.rows.append((self.service._encode(ctx), action, before,
+                          self.service.params_step, time.perf_counter()))
+        return action
+
+
+def greedy_plain(agent, rows: np.ndarray) -> np.ndarray:
+    """Greedy actions of packed rows on the plain backend (on the card)."""
+    from repro_torch.core.dfp import action_values
+    sd, m = agent.enc.state_dim, agent.enc.n_resources
+    x = torch.from_numpy(rows).to(agent.device)
+    u = action_values(agent.net, replace(agent.dfp, backend="torch"),
+                      x[:, :sd].contiguous(), x[:, sd:sd + m].contiguous(),
+                      x[:, sd + m:sd + 2 * m].contiguous())
+    return torch.where(x[:, sd + 2 * m:] > 0.5, u, -torch.inf).argmax(1) \
+        .cpu().numpy()
+
+
+def phase_checkpoint_reload() -> dict:
+    """Checkpoint, hot reload and telemetry at paper width: agent B (seed
+    13) saved with ``save_async`` and restored onto the card bit for bit
+    (no kernel launched); then agent A (seed 0) serves one client's S1
+    replay behind a ``DecisionService`` with a registry and a tracer while
+    a started ``CheckpointWatcher`` swaps in B's step, published midway:
+    every decision before the swap is A's greedy choice and every one
+    after it B's (phase 6's top-2-margin guard), 13 B1 launches a forward,
+    registry totals equal to the requests, one ``ckpt.reload``; then a
+    profiler capture of one service forward shows 13
+    ``mrsch.kernel.fused_mlp`` ranges."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint import CheckpointManager, restore_pytree
+    from repro_torch.convert import leaves
+    from repro_torch.core import AgentConfig, MRSchAgent
+    from repro_torch.obs import BufferTracer, MetricsRegistry
+    from repro_torch.serve import (CheckpointWatcher, DecisionService,
+                                   ServeConfig, ServiceSim)
+    from repro_torch.workloads import ThetaConfig
+
+    card = gpu_name_and_power_limit()
+    res, jobs = s1_trace(0)
+    agent_a = MRSchAgent(ThetaConfig().resources(), AgentConfig(seed=0))
+    agent_b = MRSchAgent(ThetaConfig().resources(), AgentConfig(seed=13))
+    n_params = sum(p.numel() for p in agent_b.net.parameters())
+    assert n_params == 51079500, n_params
+    with tempfile.TemporaryDirectory() as tmp:
+        saved, watched = os.path.join(tmp, "saved"), os.path.join(tmp, "w")
+        mgr = CheckpointManager(saved)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save_async(agent_b.net, RELOAD_STEP)
+        t1 = time.perf_counter()
+        mgr.wait()
+        t2 = time.perf_counter()
+        step_dir = os.path.join(saved, f"step_{RELOAD_STEP:08d}")
+        mb = sum(os.path.getsize(os.path.join(step_dir, f))
+                 for f in os.listdir(step_dir)) / 1e6
+        save_ms, bg_s = (t1 - t0) * 1e3, t2 - t1
+
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net, manifest = restore_pytree(agent_a.net, saved, RELOAD_STEP)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        assert launch_counts() == times({}, 0), launch_counts()
+        assert manifest["step"] == RELOAD_STEP and net is not agent_a.net
+        got, want = leaves(net), leaves(agent_b.net)
+        assert [n for n, _ in got] == [n for n, _ in want]
+        for (name, p), (_, q) in zip(got, want):
+            assert p.device == q.device and p.dtype == q.dtype, name
+            assert torch.equal(p, q), f"{name} differs after restore"
+        del net, got
+
+        # Hot reload under load.
+        os.makedirs(watched)
+        reg, tracer = MetricsRegistry(), BufferTracer()
+        svc = DecisionService(agent_a, ServeConfig(max_batch=16),
+                              registry=reg, tracer=tracer)
+        watcher = CheckpointWatcher(svc, watched, poll_interval_s=0.02)
+        policy = ReloadPolicy(svc, RELOAD_AT, step_dir,
+                              os.path.join(watched, os.path.basename(
+                                  step_dir)))
+        reset_launch_counts()
+        svc.start()
+        watcher.start()
+        ssim = ServiceSim(svc, res)
+        ssim.policy = policy
+        t0 = time.perf_counter()
+        result = ssim.run_trace(jobs)
+        wall = time.perf_counter() - t0
+        watcher.stop()
+        svc.stop()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    stats = svc.stats()
+    forwards = stats["buckets"]["dispatches"]
+    assert forwards == len(svc._buckets.widths) + stats["batches"], stats
+    assert counts == times(MLP_FORWARD, forwards), (counts, forwards)
+    assert stats["reloads"] == 1 and svc.params_step == RELOAD_STEP, stats
+    assert watcher.stats() == {"loaded_step": RELOAD_STEP, "rejected": 0,
+                               "transient_errors": 0}, watcher.stats()
+    reloads = [e for e in tracer.events if e["ev"] == "ckpt.reload"]
+    assert [e["step"] for e in reloads] == [RELOAD_STEP], reloads
+    n = len(policy.rows)
+    snap = reg.snapshot()
+    assert result.decisions == n == stats["requests"] > RELOAD_AT, (
+        result.decisions, n, stats["requests"])
+    assert snap["serve_requests_total"][""] == n, snap["serve_requests_total"]
+    assert snap["serve_reloads_total"][""] == 1.0, snap["serve_reloads_total"]
+    assert snap["serve_batches_total"][""] == stats["batches"]
+    assert result.n_unstarted == 0 and all(
+        math.isfinite(v) for v in result.metrics.as_row().values())
+
+    # A request whose "before" read saw the step was served on B; one
+    # whose "after" read did not see it was served on A, but for the
+    # request just before the first that saw it (the swap sets the network
+    # a moment before the step): that one and any in flight across the
+    # swap may be either.
+    k = next(i for i, (*_, c, _t) in enumerate(policy.rows)
+             if c == RELOAD_STEP)
+    rows = [(r, a) for i, (r, a, b, c, _) in enumerate(policy.rows)
+            if c is None and i != k - 1]
+    rows_b = [(r, a) for r, a, b, c, _ in policy.rows if b == RELOAD_STEP]
+    mixed = [(r, a) for i, (r, a, b, c, _) in enumerate(policy.rows)
+             if i == k - 1 or (b is None and c == RELOAD_STEP)]
+    assert len(rows) + len(rows_b) + len(mixed) == n and len(mixed) <= 2
+    assert rows and rows_b, (len(rows), len(rows_b))
+    err_a, tol_a, dec_a = check_served_rows(agent_a, rows)
+    err_b, tol_b, dec_b = check_served_rows(agent_b, rows_b)
+    for r, a in mixed:                # in flight across the swap: A or B
+        x = r[None]
+        assert a in (greedy_plain(agent_a, x)[0], greedy_plain(agent_b, x)[0])
+    first_b = next(t for _, _, b, _, t in policy.rows if b == RELOAD_STEP)
+    reload_ms = (first_b - policy.t_commit) * 1e3
+
+    # A profiler capture of one service forward.
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        svc._process([policy.rows[-1][0]])
+    ranges = sum(e.name == "mrsch.kernel.fused_mlp" for e in prof.events())
+    assert ranges == 13 == launch_counts()["forward"], (ranges,
+                                                        launch_counts())
+    out = {"launches": counts["forward"], "forwards": forwards,
+           "save_async_ms": save_ms, "save_bg_s": bg_s, "save_mb": mb,
+           "restore_ms": restore_ms, "reload_ms": reload_ms,
+           "decisions": n, "before": len(rows), "after": len(rows_b)}
+    log(f"[ckpt] {card}: save_async of agent B ({n_params} parameters) "
+        f"{save_ms:.3f} ms on the caller's thread; background save "
+        f"{bg_s:.3f} s, {mb:.1f} MB on disk; restore onto the card "
+        f"{restore_ms:.3f} ms, bit-equal, 0 kernel launches")
+    log(f"[reload] {card}: {n} decisions in {wall:.3f} s, step "
+        f"{RELOAD_STEP} committed after {RELOAD_AT}: {len(rows)} served on "
+        f"A, {len(rows_b)} on B, {len(mixed)} across the swap; commit to "
+        f"the first decision on the new weights {reload_ms:.3f} ms")
+    log(f"[reload] launches {json.dumps(counts)} = (forward 13) x "
+        f"{forwards} forwards; A's rows: max abs err {err_a!r} (tol "
+        f"{tol_a!r}), {dec_a} decisive; B's rows: {err_b!r} (tol "
+        f"{tol_b!r}), {dec_b} decisive; registry requests "
+        f"{snap['serve_requests_total']['']!r}, reloads "
+        f"{snap['serve_reloads_total']['']!r}, batches "
+        f"{snap['serve_batches_total']['']!r}; one ckpt.reload event; "
+        f"profiler: {ranges} mrsch.kernel.fused_mlp ranges in one forward")
+    return out
 
 
 def flash_inputs(b, sq, sk, h, kv, dh, dtype, gen) -> tuple:
@@ -2994,7 +3215,7 @@ def main() -> int:
 
 
 def scheduling_paths() -> list:
-    """Phases 3-13 and 17-20: the scheduling system's paths and kernels
+    """Phases 3-13 and 17-21: the scheduling system's paths and kernels
     B1-B6; returns their entries of the kernels line."""
     from repro_torch.core import (AgentConfig, MRSchAgent, TrainConfig,
                                   slots_from_jobsets)
@@ -3089,6 +3310,9 @@ def scheduling_paths() -> list:
     assert attn_log.round_losses, "no per-round step ran"
     del attn, lanes
     free_cuda()
+    ckpt = timed("checkpoint, hot reload and telemetry",
+                 phase_checkpoint_reload)
+    free_cuda()
     # B1's times in the kernels line: the 13 DFP layers at M = 64, the
     # device engine's and training's rows (fused_mlp_fwd_m64_kernel).
     t_k, t_p, t_l, bnd, by = timing["sums"][64]
@@ -3100,7 +3324,7 @@ def scheduling_paths() -> list:
                      + attn_device["launches"]["forward"]
                      + attn_launches["forward"] + vec_replay_launches
                      + vec_service["launches"] + vec_launches["forward"]
-                     + attn_vec_launches["forward"]),
+                     + attn_vec_launches["forward"] + ckpt["launches"]),
         "max_abs_err": worst_f32,
         "ms": t_k, "plain_ms": t_p, "bound_ms": bnd, "bound_by": by,
         "library_ms": t_l,

@@ -87,21 +87,10 @@ def lm_params_from_jax(tree, cfg, *, device=None):
 def _assign(net: nn.Module, arrays: List[np.ndarray], context: str) -> None:
     """Copy ``arrays`` (flatten order) into ``net``'s parameters, raising
     ``ValueError`` unless they match leaf for leaf in count, shape and
-    dtype."""
+    dtype (``checkpoint.check_leaves_compat``)."""
+    from .checkpoint.store import check_leaves_compat  # (it imports us)
     expected = leaves(net)
-    if len(arrays) != len(expected):
-        raise ValueError(
-            f"{context}: incompatible parameter tree — {len(arrays)} leaves, "
-            f"expected {len(expected)} (was it saved from a different "
-            "architecture?)")
-    for i, ((name, p), a) in enumerate(zip(expected, arrays)):
-        if tuple(a.shape) != tuple(p.shape):
-            raise ValueError(
-                f"{context}: leaf {i} ({name}) shape mismatch — checkpoint "
-                f"{tuple(a.shape)}, expected {tuple(p.shape)}")
-        if a.dtype != torch.empty(0, dtype=p.dtype).numpy().dtype:
-            raise ValueError(f"{context}: leaf {i} ({name}) dtype mismatch — "
-                             f"checkpoint {a.dtype}, expected {p.dtype}")
+    check_leaves_compat([p for _, p in expected], arrays, context=context)
     with torch.no_grad():
         for (_, p), a in zip(expected, arrays):
             p.copy_(torch.from_numpy(np.array(a)))

@@ -18,6 +18,8 @@ class FCFSPolicy(WindowPolicy):
     path (identical result, no tensor round trip per decision).
     """
 
+    requires_obs = False      # scores need only the window-valid mask
+
     def select(self, ctx: SchedContext) -> int:
         return 0
 

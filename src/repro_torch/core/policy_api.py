@@ -21,17 +21,19 @@ package's ``repro/core/policy_api.py``).
     ``repro_torch.sim.simulator``).
 
 ``WindowPolicy`` derives the host batched stage (``select_batch``) from
-a mask-only ``score_window``.  Policies with host-only state declare
+``score_window``, so a policy written for the device engine drives the
+lockstep engine with no adapter.  Policies with host-only state declare
 ``score_window = None``; the device engine refuses them.
 """
 from __future__ import annotations
 
-from typing import Protocol, Sequence, runtime_checkable
+from typing import Optional, Protocol, Sequence, runtime_checkable
 
 import numpy as np
 import torch
 
 from ..sim.simulator import SchedContext
+from .encoding import EncodingConfig, decision_row_dim, encode_decision_row
 
 
 @runtime_checkable
@@ -63,14 +65,30 @@ def supports_device(policy) -> bool:
 
 
 class WindowPolicy:
-    """Base class deriving the host batched stage from ``score_window``
-    for policies that score from the window-valid mask alone
-    (``requires_obs = False``: FCFS-style static preferences, no encoding
-    work).  Policies that score packed decision rows, such as
-    ``MRSchAgent``, bring their own host stages.
+    """Base class deriving the host batched stage from ``score_window``.
+
+    Subclasses implement ``score_window`` (torch ops on ``obs``'s device)
+    and set:
+
+    ``requires_obs``
+        ``True`` (default) — the engines build packed decision rows for
+        ``obs``; the subclass must provide ``enc`` (an
+        ``EncodingConfig``) fixing the row layout.
+        ``False`` — the policy scores from the window-valid mask alone
+        (FCFS-style static preferences); no encoding work is done.
+
+    ``training`` — when True the derived ``select_batch`` refuses to
+        run: training trajectories are policy-specific (episode buffers,
+        exploration RNG order) and must go through the policy's own
+        ``select``/``select_batch`` implementation.
+
+    The host stage builds ``obs`` on the host (CPU tensors); the device
+    engine hands ``score_window`` its rows on the card.
     """
 
-    requires_obs: bool = False
+    requires_obs: bool = True
+    enc: Optional[EncodingConfig] = None
+    training: bool = False
 
     # ------------------------------------------------------- device stages
     def init_state(self):
@@ -80,17 +98,46 @@ class WindowPolicy:
         raise NotImplementedError
 
     # --------------------------------------------------------- host stages
+    def _encode_rows(self, ctxs: Sequence[SchedContext],
+                     n_actions: int) -> np.ndarray:
+        """Packed decision rows for the host batched stage.
+
+        Subclasses that only consume the state section may override this
+        to skip the measurement/goal encoding work.
+        """
+        assert self.enc is not None, \
+            f"{type(self).__name__}.requires_obs needs an EncodingConfig"
+        rows = np.zeros((len(ctxs), decision_row_dim(self.enc, n_actions)),
+                        dtype=np.float32)
+        for i, c in enumerate(ctxs):
+            encode_decision_row(self.enc, c, n_actions, out=rows[i])
+        return rows
+
     def select(self, ctx: SchedContext) -> int:
         return int(self.select_batch([ctx])[0])
 
     def select_batch(self, ctxs: Sequence[SchedContext]) -> np.ndarray:
         """One ``score_window`` call for N contexts -> greedy actions."""
-        n_actions = max(len(c.window) for c in ctxs)
+        if self.training:
+            raise RuntimeError(
+                f"{type(self).__name__}.select_batch is evaluation-only: "
+                "training records a policy-specific trajectory — run "
+                "training through the policy's own select path")
+        n_actions = self._n_actions(ctxs)
         mask = np.zeros((len(ctxs), n_actions), bool)
         for i, c in enumerate(ctxs):
-            mask[i, :len(c.window)] = True
+            mask[i, :min(len(c.window), n_actions)] = True
+        if self.requires_obs:
+            obs = self._encode_rows(ctxs, n_actions)
+        else:
+            obs = mask.astype(np.float32)
         with torch.no_grad():
-            obs = torch.from_numpy(mask.astype(np.float32))
-            scores = self.score_window(self.init_state(), obs)
+            scores = self.score_window(self.init_state(),
+                                       torch.from_numpy(obs))
         scores = np.where(mask, scores.cpu().numpy(), -np.inf)
         return np.argmax(scores, axis=1).astype(np.int32)
+
+    def _n_actions(self, ctxs: Sequence[SchedContext]) -> int:
+        if self.enc is not None:
+            return self.enc.window
+        return max(len(c.window) for c in ctxs)

@@ -27,8 +27,8 @@ import time
 from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
-import torch
-
+from ..obs.metrics import MetricsRegistry
+from ..obs.profiling import annotate
 from ..sim.cluster import ResourceSpec
 from ..sim.job import Job
 from ..sim.simulator import SimConfig, SimResult, Simulator, run_trace
@@ -91,14 +91,17 @@ class TrainLog:
 def train_agent(agent: MRSchAgent, resources: Sequence[ResourceSpec],
                 jobsets: Sequence[Sequence], epochs: int = 1,
                 verbose: bool = False,
-                config: Optional[TrainConfig] = None) -> TrainLog:
+                config: Optional[TrainConfig] = None,
+                registry: Optional[MetricsRegistry] = None) -> TrainLog:
     """Run the agent through the ordered jobsets with exploration and
     learning.
 
     Without ``config`` this is the sequential loop: each trace is one
     episode, ended by ``agent.end_episode``.  With a ``TrainConfig`` the
     jobsets are dealt round-robin across ``config.n_envs`` lockstep lanes
-    and collected through the batched engine (``train_agent_vectorized``).
+    and collected through the batched engine (``train_agent_vectorized``),
+    which fills ``registry``; the sequential loop, as the JAX package's,
+    does not.
     """
     if config is not None:
         slots = slots_from_jobsets(resources, jobsets, config.n_envs)
@@ -108,7 +111,7 @@ def train_agent(agent: MRSchAgent, resources: Sequence[ResourceSpec],
             cfg = replace(cfg, epochs=epochs)
         if verbose and not cfg.verbose:
             cfg = replace(cfg, verbose=True)
-        return train_agent_vectorized(agent, slots, cfg)
+        return train_agent_vectorized(agent, slots, cfg, registry=registry)
     log = TrainLog()
     t0 = time.perf_counter()
     agent.training = True
@@ -165,7 +168,9 @@ def _check_lane_resources(agent: MRSchAgent,
 
 
 def train_agent_vectorized(agent: MRSchAgent, slots: Sequence[EnvSlot],
-                           config: TrainConfig = TrainConfig()) -> TrainLog:
+                           config: TrainConfig = TrainConfig(),
+                           registry: Optional[MetricsRegistry] = None
+                           ) -> TrainLog:
     """Batched curriculum training over heterogeneous environment lanes.
 
     Every lockstep round collects one decision from each live lane with a
@@ -173,6 +178,12 @@ def train_agent_vectorized(agent: MRSchAgent, slots: Sequence[EnvSlot],
     episode to replay, runs the train steps (``agent.end_episode``) and is
     refilled with its next jobset, so the batch stays wide.  Reports
     per-episode metrics, rounds and decisions/s.
+
+    ``registry`` (a ``repro_torch.obs.MetricsRegistry``) receives the
+    training telemetry at each finished episode: loss, grad-norm, epsilon
+    and decisions/s gauges, the episode-loss histogram and per-lane
+    episode and decision counters.  Every value is a host float by then,
+    so filling it costs no device sync.
     """
     log = TrainLog()
     if config.backend is not None:
@@ -216,7 +227,7 @@ def train_agent_vectorized(agent: MRSchAgent, slots: Sequence[EnvSlot],
                           policy=agent)
 
     def refill(i: int, result: SimResult) -> Optional[Simulator]:
-        with torch.profiler.record_function("mrsch.train.episode_flush"):
+        with annotate("mrsch.train.episode_flush"):
             loss = agent.end_episode(slot=i)
         if loss is not None:
             log.episode_losses.append(loss)
@@ -227,6 +238,21 @@ def train_agent_vectorized(agent: MRSchAgent, slots: Sequence[EnvSlot],
                              "epsilon": agent.epsilon,
                              "decisions": result.decisions, **row})
         log.decisions += result.decisions
+        if registry is not None:
+            lane = {"lane": lanes[i].tag or f"env{i}"}
+            registry.counter("train_episodes_total", lane).inc()
+            registry.counter("train_decisions_total",
+                             lane).inc(result.decisions)
+            if loss is not None:
+                registry.gauge("train_loss").set(loss)
+                registry.histogram("train_episode_loss").observe(loss)
+                if agent.last_grad_norm is not None:
+                    registry.gauge("train_grad_norm").set(
+                        agent.last_grad_norm)
+            registry.gauge("train_epsilon").set(agent.epsilon)
+            elapsed = time.perf_counter() - t0
+            registry.gauge("train_decisions_per_sec").set(
+                log.decisions / max(elapsed, 1e-9))
         if config.verbose:
             print(f"[train-vec] env {i} ({lanes[i].tag}) {active[i]}: "
                   f"loss={loss} eps={agent.epsilon:.3f} "
@@ -236,7 +262,7 @@ def train_agent_vectorized(agent: MRSchAgent, slots: Sequence[EnvSlot],
     on_round = None
     if config.grad_steps_per_round > 0:
         def on_round(round_idx: int, n_live: int) -> None:
-            with torch.profiler.record_function("mrsch.train.grad_steps"):
+            with annotate("mrsch.train.grad_steps"):
                 loss = agent.train_steps(config.grad_steps_per_round)
             if loss is not None:
                 log.round_losses.append(loss)

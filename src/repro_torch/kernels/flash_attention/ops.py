@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from ...obs.profiling import named_scope
 from . import kernel
 from .ref import flash_attention_ref, mha_bwd_ref, mha_fwd_ref
 
@@ -63,7 +64,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_ref(q, k, v, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    with torch.profiler.record_function("mrsch.kernel.flash_attention"):
+    with named_scope("mrsch.kernel.flash_attention"):
         out = kernel.flash_forward(q, k, v, causal)
     flash_attention.launches += 1
     flash_attention.kernel_launches[kernel.flash_plan(q.dtype, dh)[0]] += 1
@@ -113,7 +114,7 @@ def mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check("mha_fwd", q, k, v, lengths)
     if q.device.type == "cpu":
         return mha_fwd_ref(q, k, v, lengths)
-    with torch.profiler.record_function("mrsch.kernel.mha_fwd"):
+    with named_scope("mrsch.kernel.mha_fwd"):
         out = kernel.mha_forward(q, k, v, lengths)
     mha.launches += 1
     return out
@@ -154,7 +155,7 @@ class _MHA(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, lengths, o, lse = ctx.saved_tensors
         do = do.contiguous()
-        with torch.profiler.record_function("mrsch.kernel.mha_bwd"):
+        with named_scope("mrsch.kernel.mha_bwd"):
             # The softmax-Jacobian correction, once per row for both
             # kernels (the reference's ops.py computes it the same way).
             delta = (do * o).sum(dim=-1)

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ...obs.profiling import named_scope
 from . import kernel
 from .ref import (check_activation, fused_mlp_dgrad_ref, fused_mlp_layer_ref,
                   fused_mlp_wgrad_ref)
@@ -49,7 +50,7 @@ def _layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
            activation: str, slope: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return fused_mlp_layer_ref(x, w, b, activation, slope)
-    with torch.profiler.record_function("mrsch.kernel.fused_mlp"):
+    with named_scope("mrsch.kernel.fused_mlp"):
         y = kernel.fused_mlp_forward(x, w, b, activation, slope)
     fused_mlp.launches += 1
     return y
@@ -106,7 +107,7 @@ class _FusedMLP(torch.autograd.Function):
         act, slope = ctx.activation, ctx.slope
         g = g.contiguous()
         dx = dw = db = None
-        with torch.profiler.record_function("mrsch.kernel.fused_mlp_bwd"):
+        with named_scope("mrsch.kernel.fused_mlp_bwd"):
             if ctx.needs_input_grad[0]:
                 dx = fused_mlp_dgrad(g, y, w, activation=act, slope=slope)
             if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:

@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from ...obs.profiling import named_scope
 from . import kernel
 from .ref import prepare, ssd_plain
 
@@ -75,7 +76,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
         raise ValueError(f"ssd: x, B and C need unit feature stride and "
                          f"packed heads, got strides {x.stride()}, "
                          f"{B.stride()}, {C.stride()}")
-    with torch.profiler.record_function("mrsch.kernel.ssd"):
+    with named_scope("mrsch.kernel.ssd"):
         dtp, l = prepare(dt, dA, S, chunk)
         y = kernel.ssd_forward(x, dtp, l, B, C, chunk, out_dtype)
     ssd.launches += 1

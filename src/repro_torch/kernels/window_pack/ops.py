@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ...obs.profiling import named_scope
 from . import kernel
 from .ref import (DecisionRows, DecisionRowSpec,
                   pack_decision_rows_reference, pack_window_reference)
@@ -52,7 +53,7 @@ def pack_window(waiting: torch.Tensor, feats: torch.Tensor, *, window: int):
         return pack_window_reference(waiting, feats, window=window)
     if waiting.device.type != "cuda":
         raise ValueError(f"pack_window: no kernel for device {waiting.device}")
-    with torch.profiler.record_function("mrsch.kernel.window_pack"):
+    with named_scope("mrsch.kernel.window_pack"):
         out = kernel.window_pack_forward(waiting, feats, window)
     pack_window.launches += 1
     return out
@@ -128,7 +129,7 @@ def pack_decision_rows(spec: DecisionRowSpec, *, ready, now, started,
     if ready.device.type != "cuda":
         raise ValueError(f"pack_decision_rows: no kernel for device "
                          f"{ready.device}")
-    with torch.profiler.record_function("mrsch.kernel.window_pack"):
+    with named_scope("mrsch.kernel.window_pack"):
         out = kernel.decision_rows_forward(spec, **tensors)
     pack_decision_rows.launches += 1
     return out

@@ -1,8 +1,10 @@
 """Structured event tracing — the ``mrsch.trace/v1`` event schema.
 
-This package records events in memory (:class:`BufferTracer`); the JSONL
-writer, reader and Chrome-trace export are not ported yet.  Events are
-flat dicts with at least ``ev`` (event kind), ``env`` (environment index,
+One trace is a JSONL file: a header line ``{"schema": "mrsch.trace/v1",
+"meta": {...}}`` followed by one compact-JSON event per line, byte for
+byte what the JAX package writes for the same events and meta, so either
+package (and ``tools/trace_report.py``) reads the other's files.  Events
+are flat dicts with at least ``ev`` (event kind), ``env`` (environment index,
 ``-1`` for host-side events) and ``t`` (simulation seconds, or wall
 seconds since tracer creation for host events).
 
@@ -41,14 +43,19 @@ observability is off.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Tuple
+import json
+from pathlib import Path
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 TRACE_SCHEMA = "mrsch.trace/v1"
 
-__all__ = ["TRACE_SCHEMA", "Tracer", "NULL", "BufferTracer",
-           "canonical_events"]
+__all__ = [
+    "TRACE_SCHEMA", "Tracer", "NullTracer", "NULL", "BufferTracer",
+    "canonical_events", "trace_lines", "write_trace", "read_trace",
+    "to_chrome",
+]
 
 
 def _t32(t: float) -> float:
@@ -116,6 +123,9 @@ class Tracer:
         pass
 
 
+#: Alias: the base class *is* the null tracer.
+NullTracer = Tracer
+
 #: Module-wide default used by every instrumented constructor.
 NULL = Tracer()
 
@@ -123,8 +133,8 @@ NULL = Tracer()
 class BufferTracer(Tracer):
     """Records every event as a flat dict in :attr:`events`.
 
-    ``meta`` is free-form run metadata (the JSONL header field of the
-    ``mrsch.trace/v1`` file format).
+    ``meta`` is free-form run metadata embedded in the JSONL header by
+    :func:`write_trace`.
     """
 
     __slots__ = ("events", "meta", "_wall0")
@@ -205,7 +215,7 @@ class BufferTracer(Tracer):
 
 
 # --------------------------------------------------------------------------
-# Canonical ordering
+# Canonical ordering + serialization
 # --------------------------------------------------------------------------
 #: Phase rank of simulation events inside one (env, timestamp) group:
 #: attempt-end transitions, then queue entries, then drains, restores and
@@ -237,3 +247,90 @@ def canonical_events(events: Iterable[Dict]) -> List[Dict]:
         return (e["env"], e["t"], p, sub)
 
     return sorted(sim, key=key) + host
+
+
+def _dump(obj: Dict) -> str:
+    return json.dumps(obj, sort_keys=True, separators=(",", ":"))
+
+
+def trace_lines(events: Iterable[Dict],
+                meta: Optional[Dict] = None) -> List[str]:
+    """Full canonical serialization: header line + one line per event."""
+    header = {"schema": TRACE_SCHEMA, "meta": meta if meta else {}}
+    return [_dump(header)] + [_dump(e) for e in canonical_events(events)]
+
+
+def write_trace(events: Iterable[Dict], path,
+                meta: Optional[Dict] = None) -> Path:
+    """Write a canonical ``mrsch.trace/v1`` JSONL file."""
+    p = Path(path)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    p.write_text("\n".join(trace_lines(events, meta)) + "\n",
+                 encoding="utf-8")
+    return p
+
+
+def read_trace(path) -> Tuple[Dict, List[Dict]]:
+    """Read a JSONL trace -> (meta, events).  Validates the header."""
+    lines = Path(path).read_text(encoding="utf-8").splitlines()
+    if not lines:
+        raise ValueError(f"empty trace file: {path}")
+    header = json.loads(lines[0])
+    if header.get("schema") != TRACE_SCHEMA:
+        raise ValueError(
+            f"not a {TRACE_SCHEMA} trace: header {header!r} in {path}")
+    return header.get("meta", {}), [json.loads(ln) for ln in lines[1:] if ln]
+
+
+# --------------------------------------------------------------------------
+# Chrome-trace (Perfetto-loadable) export
+# --------------------------------------------------------------------------
+def to_chrome(events: Sequence[Dict], meta: Optional[Dict] = None) -> Dict:
+    """Convert a trace to the Chrome trace-event JSON format.
+
+    Job attempts become complete ("X") slices (pid = env, tid = jid,
+    ``ts``/``dur`` in microseconds of simulation time); scheduler and
+    fault events become instants ("i"); ``prof.span`` becomes wall-clock
+    slices on the synthetic ``host`` process.  Load the output in
+    https://ui.perfetto.dev.
+    """
+    out: List[Dict] = []
+    open_start: Dict[Tuple[int, int], Tuple[float, int]] = {}
+
+    def us(t: float) -> float:
+        return round(t * 1e6, 3)
+
+    for e in canonical_events(events):
+        ev, env, t = e["ev"], e["env"], e["t"]
+        if ev == "job.start":
+            open_start[(env, e["jid"])] = (t, e.get("bf", 0))
+        elif ev in ("job.finish", "job.fail", "job.requeue"):
+            start = open_start.pop((env, e["jid"]), None)
+            if start is not None:
+                t0, bf = start
+                out.append({"ph": "X", "pid": env, "tid": e["jid"],
+                            "name": f"job {e['jid']}", "cat": "job",
+                            "ts": us(t0), "dur": us(t - t0),
+                            "args": {"backfilled": bf, "outcome": ev}})
+            if ev != "job.finish":
+                out.append({"ph": "i", "pid": env, "tid": e["jid"],
+                            "name": ev, "cat": "job", "ts": us(t),
+                            "s": "t", "args": {k: v for k, v in e.items()
+                                               if k not in ("ev", "env",
+                                                            "t")}})
+        elif ev == "prof.span":
+            out.append({"ph": "X", "pid": -1, "tid": 0, "name": e["name"],
+                        "cat": "phase", "ts": us(t - e["dur_s"]),
+                        "dur": us(e["dur_s"])})
+        else:
+            out.append({"ph": "i", "pid": env, "tid": 0, "name": ev,
+                        "cat": ev.split(".", 1)[0], "ts": us(t), "s": "t",
+                        "args": {k: v for k, v in e.items()
+                                 if k not in ("ev", "env", "t")}})
+    # Attempts still running at trace end: zero-length open slices.
+    for (env, jid), (t0, bf) in sorted(open_start.items()):
+        out.append({"ph": "X", "pid": env, "tid": jid, "name": f"job {jid}",
+                    "cat": "job", "ts": us(t0), "dur": 0.0,
+                    "args": {"backfilled": bf, "outcome": "running"}})
+    return {"traceEvents": out, "displayTimeUnit": "ms",
+            "otherData": {"schema": TRACE_SCHEMA, "meta": meta or {}}}

@@ -17,13 +17,13 @@ does nothing but stack, pad, copy to the device and run the forward;
 padding goes to a fixed set of power-of-two bucket widths
 (``buckets.BucketCache``).
 
-Weights hot-swap atomically (``update_params``): the worker snapshots the
-network reference once per batch, so in-flight batches finish on the old
-weights while every later batch sees the new ones.  The swap checks the
-incoming network's parameter names, shapes, dtypes and device against the
-current one, so a network of a different architecture is rejected and
-serving continues on the current weights.  (Checkpoint-directory watching
-and the metrics registry are not ported yet.)
+Weights hot-swap atomically (``update_params``, driven by
+``reload.CheckpointWatcher``): the worker snapshots the network reference
+once per batch, so in-flight batches finish on the old weights while
+every later batch sees the new ones.  The swap checks the incoming
+network's parameter names and devices, and its shapes and dtypes through
+``checkpoint.check_leaves_compat``, so a network of a different
+architecture is rejected and serving continues on the current weights.
 
 The decision function is pure (greedy), so answers equal
 ``MRSchAgent.select`` on the same context wherever the top two action
@@ -38,9 +38,12 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..checkpoint import check_leaves_compat
+from ..convert import leaves
 from ..core.dfp import DFPNetwork, greedy_actions_packed
 from ..core.encoding import (decision_row_dim, encode_decision_row,
                              pad_decision_rows)
+from ..obs.metrics import MetricsRegistry
 from ..obs.trace import NULL, Tracer
 from ..sim.simulator import SchedContext
 from .batcher import MicroBatcher, Ticket
@@ -78,21 +81,21 @@ class DecisionResponse:
     width: int
 
 
-def _signature(net: DFPNetwork) -> list:
-    return [(name, tuple(p.shape), p.dtype, p.device)
-            for name, p in net.named_parameters()]
-
-
 class DecisionService:
     """Micro-batched greedy DFP inference with hot-swappable weights.
 
+    ``registry`` (a ``repro_torch.obs.MetricsRegistry``) receives serving
+    telemetry — request/batch/reload counters, queue-depth and
+    bucket-hit-rate gauges, batch-size and queue-wait histograms.
     ``tracer`` receives ``serve.dispatch`` and ``ckpt.reload``
-    ``mrsch.trace/v1`` events (default: no-op).
+    ``mrsch.trace/v1`` events.  Both default to no-ops.
     """
 
     def __init__(self, agent, config: ServeConfig = ServeConfig(), *,
+                 registry: Optional[MetricsRegistry] = None,
                  tracer: Tracer = NULL):
         self.config = config
+        self.registry = registry
         self.tracer = tracer
         self.enc = agent.enc
         self.dfp = agent.dfp
@@ -208,6 +211,21 @@ class DecisionService:
         """Worker-thread telemetry hook (see MicroBatcher.on_batch)."""
         width = self._buckets.width_for(n)
         self.tracer.dispatch(n, width, max(waits) if waits else 0.0)
+        reg = self.registry
+        if reg is None:
+            return
+        reg.counter("serve_requests_total").inc(n)
+        reg.counter("serve_batches_total").inc()
+        reg.counter("serve_batch_rows_total", {"width": width}).inc(n)
+        reg.gauge("serve_queue_depth").set(depth)
+        reg.histogram("serve_batch_size",
+                      buckets=self._buckets.widths).observe(n)
+        wait_hist = reg.histogram("serve_queue_wait_seconds")
+        for w in waits:
+            wait_hist.observe(w)
+        b = self._buckets.stats()
+        hit = (b["bucket_hits"] / b["dispatches"]) if b["dispatches"] else 0.0
+        reg.gauge("serve_bucket_hit_rate").set(hit)
 
     # ------------------------------------------------------------ hot swap
     @property
@@ -224,28 +242,34 @@ class DecisionService:
         """Atomically swap the served network (zero-downtime reload).
 
         The incoming network must match the current one parameter for
-        parameter (name, shape, dtype, device); otherwise ``ValueError``
-        and the service keeps serving the current weights.
+        parameter (name, device; shape and dtype through
+        ``check_leaves_compat``); otherwise ``ValueError`` and the service
+        keeps serving the current weights.  In-flight batches finish on
+        the network they snapshot; every batch formed after the swap
+        scores on the new one.
         """
         if not isinstance(net, DFPNetwork):
             raise ValueError(f"update_params: expected a DFPNetwork, got "
                              f"{type(net).__name__}")
-        old, new = _signature(self._net), _signature(net)
-        if [s[0] for s in old] != [s[0] for s in new]:
+        old, new = leaves(self._net), leaves(net)
+        if [n for n, _ in old] != [n for n, _ in new]:
             raise ValueError("update_params: incompatible parameter names — "
-                             f"got {[s[0] for s in new]}, expected "
-                             f"{[s[0] for s in old]}")
-        for o, g in zip(old, new):
-            if o != g:
+                             f"got {[n for n, _ in new]}, expected "
+                             f"{[n for n, _ in old]}")
+        check_leaves_compat([p for _, p in old], [p for _, p in new],
+                            context="update_params")
+        for (name, o), (_, g) in zip(old, new):
+            if o.device != g.device:
                 raise ValueError(
-                    f"update_params: parameter {o[0]} mismatch — got shape "
-                    f"{g[1]} {g[2]} on {g[3]}, expected shape {o[1]} {o[2]} "
-                    f"on {o[3]}")
+                    f"update_params: parameter {name} device mismatch — got "
+                    f"{g.device}, expected {o.device}")
         with self._reload_lock:
             self._net = net                  # atomic reference swap
             self._params_step = step
             self._reloads += 1
         self.tracer.ckpt_reload(step if step is not None else -1)
+        if self.registry is not None:
+            self.registry.counter("serve_reloads_total").inc()
 
     # ------------------------------------------------------------ stats
     def stats(self) -> Dict[str, object]:

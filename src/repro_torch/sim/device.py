@@ -66,6 +66,7 @@ import numpy as np
 import torch
 
 from ..kernels.window_pack import DecisionRowSpec, pack_decision_rows
+from ..obs.profiling import annotate
 from ..obs.trace import Tracer
 from .cluster import Cluster, ResourceSpec
 from .job import Job
@@ -821,7 +822,7 @@ class DeviceSimulator:
             gen.manual_seed(int(seed))
         sync = _SyncCounter()
         with torch.no_grad(), \
-                torch.profiler.record_function("mrsch.device.rollout"):
+                annotate("mrsch.device.rollout"):
             raw, obs_rows, rounds_run = _device_rollout(
                 lay, self.policy.score_window, self.policy.init_state(),
                 explore, float(eps or 0.0), gen, collect, trace, self.arrays,

@@ -34,6 +34,7 @@ from typing import Callable, List, Optional, Protocol, Sequence
 import numpy as np
 import torch
 
+from ..obs.profiling import annotate
 from ..obs.trace import NULL, Tracer
 from .cluster import ResourceSpec
 from .job import Job
@@ -201,7 +202,7 @@ class VectorSimulator:
             if not live:
                 break
             ctxs = [pending[i] for i in live]
-            with torch.profiler.record_function("mrsch.vector.policy_select"):
+            with annotate("mrsch.vector.policy_select"):
                 if self._slot_aware:
                     actions = np.asarray(self.policy.select_batch(
                         ctxs, slots=live))

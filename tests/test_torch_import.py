@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: it imports without jax, and no file of it
-(nor chip_smoke.py) imports jax or the JAX package."""
+"""The PyTorch port stands alone: it imports without jax and ml_dtypes,
+and no file of it (nor chip_smoke.py) imports jax, ml_dtypes or the JAX
+package."""
 import ast
 import os
 import subprocess
@@ -19,6 +20,7 @@ MODULES = sorted(
 def test_every_module_imports_without_jax():
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
+            "sys.modules['ml_dtypes'] = None\n"
             f"for name in {MODULES!r}:\n"
             "    importlib.import_module(name)\n"
             "assert not any(m == 'repro' or m.startswith('repro.')\n"
@@ -42,7 +44,7 @@ def _imports(path: Path):
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     bad = [m for m in _imports(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro")]
     assert not bad, f"{path} imports {bad}"
 
 
@@ -50,6 +52,10 @@ def test_scan_covers_every_slice():
     """Both scans above walk the whole package; the modules of each
     ported slice are among them."""
     for name in ("repro_torch.serve.service",
+                 "repro_torch.serve.reload",
+                 "repro_torch.checkpoint.store",
+                 "repro_torch.obs.metrics",
+                 "repro_torch.obs.profiling",
                  "repro_torch.kernels.fused_mlp.ops",
                  "repro_torch.kernels.window_pack.ops",
                  "repro_torch.kernels.window_pack.kernel",
