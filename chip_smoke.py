@@ -158,13 +158,36 @@ prints its wall seconds:
    requests equal to the decisions and one reload, one ``ckpt.reload``
    event; the ms from the commit to the first decision on the new
    weights; a profiler capture of one service forward shows 13
-   ``mrsch.kernel.fused_mlp`` ranges.
+   ``mrsch.kernel.fused_mlp`` ranges;
+22. policies, baselines and the tournament, at full Theta width on the
+   cells S1 and bursty-campaigns x seeds 1-2 (1 day at 160 jobs/day):
+   ``run_tournament`` of ``zoo_policies`` (FCFS, GA, ScalarRL, the
+   seed-0 paper-width MRSch agent on the kernel backend, PRB-EWT,
+   CP-Dispatch, DRAS, CoSchedRL) with vector 4: no failed cell, 32 rows,
+   7 batched entrants, the committed baselines' columns and entrants;
+   the MRSch entrant 13 B1 launches a batched forward, every batched row
+   equal to the M = 1 forward bit for bit, and each cell's events and row
+   equal to the sequential ``run_trace``'s; its ``goal_log`` one goal a
+   decision; the leaderboard and each entrant's decisions/s; then
+   PRB-EWT, DRAS, CoSchedRL and ScalarRL each on ``DeviceSimulator``
+   over the four cells as four environments (one ``window_pack`` launch
+   a deciding round, none of B1: their networks are plain) against their
+   sequential runs (top-2-margin guard), rounds/s and decisions/s;
+   ScalarRL (hidden 512, 128) trains one episode: a finite loss, every
+   leaf moved, the step within rtol 1e-4 (loss) and rtol 1e-3, atol 1e-4
+   (parameters) of the same step on the CPU; the CNN agent
+   (``state_module="cnn"``: convs 1 -> 8 -> 16, proj 11,424 -> 512; the
+   convs and projection plain, TF32 off): the kernel backend's forward
+   within 2e-4 of the torch backend's with 10 B1 launches, the device
+   rollout against the sequential run, one ``train_agent`` episode with
+   exactly 10/8/10 B1/B2/B3 launches a step and one step on both
+   backends.
 
 The line before the last is a JSON summary of the kernels (B1's times
 are the 13 DFP layers' at M = 64; B1, B2, B3, B5 and B6 count the
-launches of 17-21 too; ``window_pack``'s are the fused round
+launches of 17-22 too; ``window_pack``'s times are the fused round
 front's on the MLP path's median round, its plain time the composite's,
-its launches both device paths'), B7 as two
+its launches both device paths' and 22's), B7 as two
 entries: ``flash_attention`` (``flash_fwd_sm90.cu``, bfloat16; its launches
 are the bfloat16 prefill step's) and ``flash_attention_f32``
 (``flash_fwd.cu``; the float32 prefill steps'); the last line is
@@ -2157,6 +2180,42 @@ def packed_values(agent, rows: torch.Tensor) -> torch.Tensor:
     return torch.where(rows[:, sd + 2 * m:] > 0.5, u, -torch.inf)
 
 
+def check_batched_rows(agent, rounds: list) -> tuple:
+    """Each batched row (``rounds``: the rows of every batched forward, as
+    ``_greedy_rows`` received them) at its round's width against the M = 1
+    forward the sequential engine runs: bit for bit, and no top-2 margin
+    within their difference.  Returns the rows compared, every row's
+    top-2 margin and the largest finite value."""
+    from repro_torch.core.encoding import pad_decision_rows
+    worst, diffs, margins, n_rows = 0.0, [], [], 0
+    with torch.no_grad():
+        for rows in rounds:
+            n = len(rows)
+            width = 1 << max(n - 1, 0).bit_length()
+            packed = torch.from_numpy(
+                pad_decision_rows(rows, width, agent.enc)).to(agent.device)
+            u_b = packed_values(agent, packed)[:n]
+            u_1 = torch.cat([packed_values(agent, packed[i:i + 1])
+                             for i in range(n)])
+            fin = torch.isfinite(u_b)
+            assert torch.equal(fin, torch.isfinite(u_1))
+            d = torch.where(fin, (u_b - u_1).abs(), 0.0).amax(1)
+            top2 = torch.topk(u_b, 2, dim=1).values
+            margins.append((top2[:, 0] - top2[:, 1]).cpu())
+            diffs.append(d.cpu())
+            worst = max(worst, float(u_b[fin].abs().max()))
+            n_rows += n
+    margins, diffs = torch.cat(margins).numpy(), torch.cat(diffs).numpy()
+    flips = np.flatnonzero(margins <= diffs)
+    assert not len(flips), (f"near-tie: {len(flips)} batched rows whose "
+                            f"top-2 margin is within their M = 1 difference, "
+                            f"first {int(flips[0])}")
+    assert not diffs.any(), (
+        f"batched rows differ from the M = 1 forward: max {diffs.max()!r} "
+        f"over {int((diffs > 0).sum())} rows")
+    return n_rows, margins, worst
+
+
 def phase_vector_replay(agent) -> tuple:
     """Greedy lockstep replay: the eight S1 traces of seeds 1-8 as eight
     lanes of the engine ``run_traces`` builds, against the sequential
@@ -2164,7 +2223,6 @@ def phase_vector_replay(agent) -> tuple:
     width against the M = 1 forward the sequential engine runs, under a
     top-2-margin guard.  Returns the launches, the vector results and
     both engines' decisions/s."""
-    from repro_torch.core.encoding import pad_decision_rows
     from repro_torch.sim import SimConfig, VectorSimulator, run_trace
     traces = [s1_trace(seed) for seed in VECTOR_SEEDS]
     res, jobsets = traces[0][0], [j for _, j in traces]
@@ -2204,34 +2262,7 @@ def phase_vector_replay(agent) -> tuple:
         assert same_results(a, b), f"lane {i}: vector != sequential"
         assert a.decisions > 0 and a.n_unstarted == 0, (i, a.n_unstarted)
 
-    # Each batched row against the M = 1 forward, and the top-2 margin of
-    # every row against the largest difference between the two.
-    worst, diffs, margins, n_rows = 0.0, [], [], 0
-    with torch.no_grad():
-        for rows in rounds:
-            n = len(rows)
-            width = 1 << max(n - 1, 0).bit_length()
-            packed = torch.from_numpy(
-                pad_decision_rows(rows, width, agent.enc)).to(agent.device)
-            u_b = packed_values(agent, packed)[:n]
-            u_1 = torch.cat([packed_values(agent, packed[i:i + 1])
-                             for i in range(n)])
-            fin = torch.isfinite(u_b)
-            assert torch.equal(fin, torch.isfinite(u_1))
-            d = torch.where(fin, (u_b - u_1).abs(), 0.0).amax(1)
-            top2 = torch.topk(u_b, 2, dim=1).values
-            margins.append((top2[:, 0] - top2[:, 1]).cpu())
-            diffs.append(d.cpu())
-            worst = max(worst, float(u_b[fin].abs().max()))
-            n_rows += n
-    margins, diffs = torch.cat(margins).numpy(), torch.cat(diffs).numpy()
-    flips = np.flatnonzero(margins <= diffs)
-    assert not len(flips), (f"near-tie: {len(flips)} batched rows whose "
-                            f"top-2 margin is within their M = 1 difference, "
-                            f"first {int(flips[0])}")
-    assert not diffs.any(), (
-        f"batched rows differ from the M = 1 forward: max {diffs.max()!r} "
-        f"over {int((diffs > 0).sum())} rows")
+    n_rows, margins, worst = check_batched_rows(agent, rounds)
     tol = 2e-4 * max(1.0, worst)
     contested = np.isfinite(margins)
     widths = np.bincount([len(r) for r in rounds]).tolist()
@@ -2607,6 +2638,349 @@ def phase_checkpoint_reload() -> dict:
         f"{snap['serve_batches_total']['']!r}; one ckpt.reload event; "
         f"profiler: {ranges} mrsch.kernel.fused_mlp ranges in one forward")
     return out
+
+
+# Phase 22: the comparison policies, the baseline zoo, the tournament and
+# the CNN state module, at full Theta scale on 1-day traces.
+POLICY_SCENARIOS = ("S1", "bursty-campaigns")
+POLICY_SEEDS = (1, 2)
+POLICY_DAYS, POLICY_PER_DAY = 1.0, 160.0
+ZOO_ON_DEVICE = ("PRB-EWT", "DRAS", "CoSchedRL", "ScalarRL")
+# The CNN agent: its convs and projection are plain PyTorch (cuDNN and a
+# matmul), as the reference keeps them on plain XLA ops; the ten head
+# layers run B1.  The measurement and goal modules' first layers take no
+# input gradient, so a step runs eight dgrad launches.
+CNN_FORWARD = {"forward": 10}
+CNN_STEP = {"forward": 10, "dgrad": 8, "wgrad": 10}
+SCALAR_RL_TRAIN_HIDDEN = (512, 128)   # benchmarks/common.py's ScalarRL
+
+
+def window_margins(policy, rows: np.ndarray, tol_scale: float) -> tuple:
+    """Slot scores of a network policy's decision rows in float64 on the
+    card (a float64 copy of its network; invalid slots -inf), each row's
+    top-2 margin and the tolerance ``tol_scale`` x the largest score."""
+    net = copy.deepcopy(policy.init_state()).double()
+    x = torch.from_numpy(rows.astype(np.float64)).to("cuda")
+    w = policy.enc.window
+    with torch.no_grad():
+        s = policy.score_window(net, x)
+    s = torch.where(x[:, -w:] > 0.5, s, -torch.inf).cpu().numpy()
+    top2 = np.sort(s, axis=1)[:, -2:]
+    tol = tol_scale * max(1.0, float(np.abs(s[np.isfinite(s)]).max()))
+    return top2[:, 1] - top2[:, 0], tol
+
+
+def phase_policies() -> dict:
+    """Phase 22: the tournament of the eight entrants, the zoo on the
+    device engine, ScalarRL training and the CNN agent at paper width;
+    returns the launches of the phase's runs by kernel."""
+    from repro_torch.convert import leaves
+    from repro_torch.core import AgentConfig, MRSchAgent, train_agent
+    from repro_torch.core.encoding import (decision_row_dim,
+                                           encode_decision_row)
+    from repro_torch.core.policies import (ScalarRLConfig, ScalarRLPolicy,
+                                           _pg_step)
+    from repro_torch.eval import (TournamentConfig, render_leaderboard,
+                                  run_tournament, zoo_policies)
+    from repro_torch.eval.matrix import _row
+    from repro_torch.nn import adam_init, count_params
+    from repro_torch.obs.trace import BufferTracer, canonical_events
+    from repro_torch.sim import DeviceSimulator, SimConfig, Simulator
+    from repro_torch.workloads import ThetaConfig
+    from repro_torch.workloads.registry import build_jobs, get_scenario
+
+    card = gpu_name_and_power_limit()
+    theta = ThetaConfig(duration_days=POLICY_DAYS,
+                        jobs_per_day=POLICY_PER_DAY)
+    res = theta.resources()
+    cells = [(s, seed) for s in POLICY_SCENARIOS for seed in POLICY_SEEDS]
+    traces = [build_jobs(s, theta, seed=seed) for s, seed in cells]
+    faults = [get_scenario(s).faults for s, _ in cells]
+    total = {k: 0 for k in KERNELS}
+
+    def add(counts: dict) -> None:
+        for k, v in counts.items():
+            total[k] += v
+
+    # (1) The tournament: 8 entrants x 4 cells, the MRSch entrant the
+    # seed-0 paper-width agent of phase 6 (kernel backend).
+    agent = MRSchAgent(res, AgentConfig(seed=0))
+    pols = zoo_policies(res, agent=agent)
+    rounds: list = []
+    greedy_rows = agent._greedy_rows
+
+    def recording(rows):
+        rounds.append(rows.copy())
+        return greedy_rows(rows)
+
+    agent._greedy_rows = recording
+    tracer = BufferTracer()
+    cfg = TournamentConfig(scenarios=POLICY_SCENARIOS, seeds=POLICY_SEEDS,
+                           vector=4)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    t = run_tournament(pols, res, theta, cfg, tracer=tracer)
+    torch.cuda.synchronize()
+    t_wall = time.perf_counter() - t0
+    counts = launch_counts()
+    del agent._greedy_rows
+    summary = t["summary"]
+    assert summary["failures"] == [] and summary["n_failed_cells"] == 0, \
+        summary["failures"]
+    assert summary["n_policies"] == 8 and len(t["rows"]) == 32 == \
+        summary["n_cells"], summary
+    assert summary["batched_policies"] == 7, summary   # all but GA
+    committed = json.loads((ROOT / "benchmarks" / "baselines"
+                            / "tournament.json").read_text())
+    matrix = json.loads((ROOT / "benchmarks" / "baselines"
+                         / "matrix.json").read_text())
+    assert t["columns"] == matrix["columns"], t["columns"]
+    assert t["config"]["policies"] == committed["config"]["policies"]
+    for p, metrics in committed["per_policy"].items():
+        assert list(t["per_policy"][p]) == list(metrics), p
+    assert counts == times(MLP_FORWARD, len(rounds)), (counts, len(rounds))
+    add(counts)
+    n_rows, margins, worst = check_batched_rows(agent, rounds)
+    mrsch_rows = {(r["scenario"], r["seed"]): r for r in t["rows"]
+                  if r["policy"] == "MRSch"}
+    assert n_rows == sum(r["decisions"] for r in mrsch_rows.values())
+    # (5) The goal log: one goal per decision of the greedy run above.
+    assert len(agent.goal_log) == n_rows, (len(agent.goal_log), n_rows)
+    goals = np.stack(agent.goal_log)
+    assert goals.shape == (n_rows, len(res)) and np.isfinite(goals).all()
+    n_goals = len(agent.goal_log)
+
+    # The MRSch entrant against the sequential engine, job by job: every
+    # scheduling and job event of each cell's environment.
+    envs = tracer.meta["envs"]
+    ids = {(v["scenario"], v["seed"]): int(e) for e, v in envs.items()
+           if v["policy"] == "MRSch"}
+    reset_launch_counts()
+    n_seq, n_events = 0, 0
+    for (scenario, seed), jobs, f in zip(cells, traces, faults):
+        eid = ids[(scenario, seed)]
+        seq_tracer = BufferTracer()
+        result = Simulator(res, jobs, agent, SimConfig(), faults=f,
+                           tracer=seq_tracer, env=eid).run()
+        ev_seq = canonical_events(seq_tracer.events)
+        ev_vec = canonical_events([e for e in tracer.events
+                                   if e["env"] == eid])
+        assert ev_seq == ev_vec, f"MRSch {scenario} seed {seed}: events"
+        assert _row("MRSch", scenario, seed, result, res) == \
+            mrsch_rows[(scenario, seed)], (scenario, seed)
+        n_seq += result.decisions
+        n_events += len(ev_seq)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts == times(MLP_FORWARD, n_seq), counts
+    add(counts)
+    spans = {e["name"][len("policy:"):]: e["dur_s"] for e in tracer.events
+             if e["ev"] == "prof.span"}
+    decisions = {}
+    for r in t["rows"]:
+        decisions[r["policy"]] = decisions.get(r["policy"], 0) + r["decisions"]
+    contested = np.isfinite(margins)
+    log(f"[tournament] {card}: run_tournament of {summary['n_policies']} "
+        f"entrants x {len(cells)} cells ({', '.join(POLICY_SCENARIOS)}; "
+        f"seeds {POLICY_SEEDS}; full-scale Theta, {POLICY_DAYS:g} day at "
+        f"{POLICY_PER_DAY:g} jobs/day: {[len(j) for j in traces]} jobs) "
+        f"with vector 4 in {t_wall:.3f} s; {summary['n_cells']} rows, no "
+        f"failed cell, {summary['batched_policies']} batched entrants; "
+        f"columns equal benchmarks/baselines/matrix.json's, entrants and "
+        f"per-policy metrics tournament.json's")
+    log(f"[tournament] MRSch: {len(rounds)} batched forwards, 13 B1 "
+        f"launches each; all {n_rows} batched rows equal the M = 1 "
+        f"forward bit for bit (top-2 margin min "
+        f"{float(margins[contested].min())!r}); each cell's {n_events} "
+        f"canonical events in all and its row equal the sequential "
+        f"run_trace's ({n_seq} decisions, 13 B1 launches each); goal_log "
+        f"held {n_goals} goals after the tournament, one per decision")
+    for name in t["config"]["policies"]:
+        log(f"[tournament] {card}: {name}: {decisions[name]} decisions in "
+            f"{spans[name]:.3f} s = {decisions[name] / spans[name]:.1f} "
+            f"decisions/s")
+    for line in render_leaderboard(t).splitlines():
+        log(f"[tournament] {line}")
+    del rounds, tracer
+
+    # (2) The zoo on the device engine: the four cells as four
+    # environments, each against its sequential run.
+    zoo = {name: pols[name]() for name in ZOO_ON_DEVICE}
+    assert zoo["ScalarRL"].config.hidden == (256, 64)
+    device_rows = {}
+    for name, policy in zoo.items():
+        sim = DeviceSimulator(res, traces, policy, faults=faults)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        ro = sim.rollout(collect=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        st = ro.stats
+        assert st.rounds > 0 and counts == times({"window_pack": 1},
+                                                  st.rounds), (counts, st)
+        assert standalone_packs() == 0
+        add(counts)
+        rows = {i: [] for i in range(len(traces))}
+        for _, i, row, _ in ro.transitions():
+            rows[i].append(row)
+        compared = []
+        for i, (jobs, f) in enumerate(zip(traces, faults)):
+            rec = Recorder(policy)
+            seq = Simulator(res, jobs, rec, SimConfig(), faults=f).run()
+            acts = env_actions(ro, i)
+            n_cmp = len(acts)
+            if name != "PRB-EWT":
+                # A network's M = 4 rows against its M = 1 row: equal up
+                # to the first top-2 margin within 2e-4 of the largest
+                # score.  PRB-EWT has no network and must agree in full.
+                m, tol = window_margins(policy, np.stack(rows[i]), 2e-4)
+                ties = np.flatnonzero(m <= tol)
+                n_cmp = int(ties[0]) if len(ties) else len(acts)
+            assert n_cmp > 0 and acts[:n_cmp] == rec.actions[:n_cmp], \
+                (name, i, n_cmp)
+            if acts == rec.actions:
+                assert_results_close(seq, ro.results[i])
+            compared.append(f"{len(acts)} equal in full" if acts ==
+                            rec.actions else f"{n_cmp} of {len(acts)}")
+        device_rows[name] = {"rounds": st.rounds_run, "deciding": st.rounds,
+                             "decisions": st.decisions, "wall_s": wall}
+        log(f"[zoo device] {card}: {name}: DeviceSimulator.rollout(collect="
+            f"True) over the 4 cells as N = 4 environments: "
+            f"{st.rounds_run} rounds ({st.rounds} deciding), {st.decisions} "
+            f"decisions in {wall:.3f} s = {st.rounds_run / wall:.1f} "
+            f"rounds/s, {st.decisions / wall:.1f} decisions/s; launches "
+            f"{json.dumps(counts)} = (window_pack 1) x {st.rounds} deciding "
+            f"rounds; each environment's decisions against its sequential "
+            f"run_trace: {', '.join(compared)}")
+
+    # (3) ScalarRL training at paper width: one episode, one REINFORCE
+    # step, held against the same step on the CPU.
+    rl = ScalarRLPolicy(res, ScalarRLConfig(hidden=SCALAR_RL_TRAIN_HIDDEN))
+    before = [p.detach().clone() for _, p in leaves(rl.params)]
+    rl.training = True
+    reset_launch_counts()
+    step_ms, losses = [], []
+    for i, jobs in enumerate(traces[:2]):      # S1, seeds 1 and 2
+        t0 = time.perf_counter()
+        Simulator(res, jobs, rl, SimConfig()).run()
+        if i == 0:
+            collect_s = time.perf_counter() - t0
+            batch = rl.episode_batch()
+            net_cpu = copy.deepcopy(rl.params).cpu()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(rl.end_episode())     # ends in the loss's host read
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            after = [p.detach().clone() for _, p in leaves(rl.params)]
+    torch.cuda.synchronize()
+    assert launch_counts() == times({}, 0), launch_counts()
+    assert all(x is not None and math.isfinite(x) for x in losses), losses
+    loss = losses[0]
+    moved = [not torch.equal(a, p) for a, p in zip(before, after)]
+    assert all(moved), f"{moved.count(False)} ScalarRL leaves did not move"
+    _, loss_cpu = _pg_step(
+        net_cpu, adam_init([p for _, p in leaves(net_cpu)]),
+        {k: torch.from_numpy(v) for k, v in batch.items()}, rl.config.lr,
+        rl.config.entropy_coef)
+    assert math.isclose(loss, float(loss_cpu), rel_tol=1e-4), \
+        (loss, float(loss_cpu))
+    p_err = 0.0
+    for (name, _), p, (_, q) in zip(leaves(rl.params), after,
+                                    leaves(net_cpu)):
+        torch.testing.assert_close(p.cpu(), q.detach(), rtol=1e-3,
+                                   atol=1e-4, msg=name)
+        p_err = max(p_err, float((p.cpu() - q.detach()).abs().max()))
+    log(f"[scalar rl train] {card}: ScalarRL hidden "
+        f"{SCALAR_RL_TRAIN_HIDDEN} ({count_params(rl.params)} parameters) "
+        f"over {cells[0][0]} seed {cells[0][1]}: {len(batch['action'])} "
+        f"sampled decisions in {collect_s:.3f} s; end_episode "
+        f"{step_ms[0]:.3f} ms (the first: warm-up included), "
+        f"{step_ms[1]:.3f} ms on seed {cells[1][1]}'s episode; loss "
+        f"{loss!r}, the CPU's {float(loss_cpu)!r}; all {len(moved)} leaves "
+        f"moved, within rtol 1e-3, atol 1e-4 of the CPU step (max abs "
+        f"diff {p_err!r}); 0 kernel launches (plain network)")
+    del rl, net_cpu, after, zoo, pols, agent
+
+    # (4) The CNN agent at paper width.
+    cnn = MRSchAgent(res, AgentConfig(state_module="cnn", seed=0))
+    net = cnn.net.state
+    shapes = ([tuple(c.w.shape) for c in net.convs], tuple(net.proj.w.shape))
+    assert cnn.enc.state_dim == 11410 and shapes == (
+        [(9, 1, 8), (9, 8, 16)], (11424, 512)), (cnn.enc.state_dim, shapes)
+    sim = Simulator(res, traces[0], None, SimConfig())
+    rows = []
+    while len(rows) < 64 and (ctx := sim.next_decision()) is not None:
+        row = np.zeros(decision_row_dim(cnn.enc, 10), np.float32)
+        encode_decision_row(cnn.enc, ctx, 10, out=row)
+        rows.append(row)
+        sim.post_action(0)
+    rows = torch.from_numpy(np.stack(rows)).to("cuda")
+    fwd_err = 0.0
+    for m in (1, len(rows)):
+        reset_launch_counts()
+        u_k = packed_values(cnn, rows[:m])
+        torch.cuda.synchronize()
+        assert launch_counts() == times(CNN_FORWARD, 1), launch_counts()
+        cnn.set_backend("torch")
+        u_t = packed_values(cnn, rows[:m])
+        cnn.set_backend("kernel")
+        fin = torch.isfinite(u_t)
+        torch.testing.assert_close(u_k, u_t, rtol=TOL[torch.float32],
+                                   atol=TOL[torch.float32])
+        fwd_err = max(fwd_err, float((u_k[fin] - u_t[fin]).abs().max()))
+    reset_launch_counts()
+    cnn.goal_log.clear()
+    n_cmp, n_dec = agent_device_parity(cnn, res, traces[0], "CNN agent",
+                                       "cnn device parity")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    n_seq = len(cnn.goal_log)         # the sequential run's decisions
+    assert counts == {**times(CNN_FORWARD, n_seq + n_dec),
+                      "window_pack": n_dec}, (counts, n_seq, n_dec)
+    add(counts)
+    before = [p.detach().clone() for _, p in leaves(cnn.net)]
+    bursts = time_bursts(cnn)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    log_ = train_agent(cnn, res, [traces[0]])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    del cnn.train_steps
+    steps = sum(b["steps"] for b in bursts)
+    assert len(bursts) == 1 and steps == int(cnn.opt_state.step) == 64
+    for b in bursts:
+        assert b["launches"] == times(CNN_STEP, b["steps"]), b
+        assert math.isfinite(b["loss"]) and math.isfinite(b["grad_norm"]), b
+    greedy = counts["forward"] - CNN_STEP["forward"] * steps
+    assert greedy % CNN_FORWARD["forward"] == 0 and counts == {
+        **times(CNN_STEP, steps), "forward": counts["forward"]}, counts
+    add(counts)
+    moved = [not torch.equal(a, p) for a, (_, p) in zip(before,
+                                                        leaves(cnn.net))]
+    assert all(moved), f"{moved.count(False)} CNN leaves did not move"
+    check_step_parity(cnn, CNN_STEP, "cnn train parity")
+    phase_training_timing(cnn, "cnn train timing")
+    b = bursts[0]
+    log(f"[cnn] {card}: CNN agent (state_dim {cnn.enc.state_dim}, convs "
+        f"1 -> 8 -> 16 of width 9, stride 4, proj {shapes[1][0]} -> "
+        f"{shapes[1][1]}; {count_params(cnn.net)} parameters): kernel "
+        f"backend forward within {TOL[torch.float32]} of the torch "
+        f"backend's at M = 1 and {len(rows)} (max abs diff {fwd_err!r}), "
+        f"10 B1 launches a forward; device rollout against the sequential "
+        f"run: {n_cmp} of {n_dec} decisions compared")
+    log(f"[cnn] {card}: train_agent over one S1 episode: "
+        f"{log_.decisions} decisions, {steps} steps in {b['wall_s']:.4f} s "
+        f"= {b['wall_s'] / steps * 1e3:.4f} ms a step (sampling and copy "
+        f"included); launches {json.dumps(counts)} = (forward 10, dgrad 8, "
+        f"wgrad 10) x {steps} + {greedy // 10} greedy forwards; loss "
+        f"{b['loss']!r}; all {len(moved)} leaves moved")
+    del cnn, before
+    return {"launches": total, "tournament_s": t_wall,
+            "devices": device_rows}
 
 
 def flash_inputs(b, sq, sk, h, kv, dh, dtype, gen) -> tuple:
@@ -3215,7 +3589,7 @@ def main() -> int:
 
 
 def scheduling_paths() -> list:
-    """Phases 3-13 and 17-21: the scheduling system's paths and kernels
+    """Phases 3-13 and 17-22: the scheduling system's paths and kernels
     B1-B6; returns their entries of the kernels line."""
     from repro_torch.core import (AgentConfig, MRSchAgent, TrainConfig,
                                   slots_from_jobsets)
@@ -3313,6 +3687,10 @@ def scheduling_paths() -> list:
     ckpt = timed("checkpoint, hot reload and telemetry",
                  phase_checkpoint_reload)
     free_cuda()
+    policies = timed("policies, baselines and the tournament",
+                     phase_policies)
+    pol = policies["launches"]
+    free_cuda()
     # B1's times in the kernels line: the 13 DFP layers at M = 64, the
     # device engine's and training's rows (fused_mlp_fwd_m64_kernel).
     t_k, t_p, t_l, bnd, by = timing["sums"][64]
@@ -3324,7 +3702,8 @@ def scheduling_paths() -> list:
                      + attn_device["launches"]["forward"]
                      + attn_launches["forward"] + vec_replay_launches
                      + vec_service["launches"] + vec_launches["forward"]
-                     + attn_vec_launches["forward"] + ckpt["launches"]),
+                     + attn_vec_launches["forward"] + ckpt["launches"]
+                     + pol["forward"]),
         "max_abs_err": worst_f32,
         "ms": t_k, "plain_ms": t_p, "bound_ms": bnd, "bound_by": by,
         "library_ms": t_l,
@@ -3332,7 +3711,8 @@ def scheduling_paths() -> list:
         "name": "window_pack", "route": "cuda",
         "source": WP_SOURCE, "replaces": WP_REPLACES,
         "launches": (device["launches"]["window_pack"]
-                     + attn_device["launches"]["window_pack"]),
+                     + attn_device["launches"]["window_pack"]
+                     + pol["window_pack"]),
         "max_abs_err": max(wp_err, wp_main["max_abs_err"],
                            wp_attn["max_abs_err"]),
         "ms": wp_main["ms"], "plain_ms": wp_main["plain_ms"],
@@ -3342,7 +3722,8 @@ def scheduling_paths() -> list:
         "name": f"fused_mlp_{kind}", "route": "cuda", "source": BWD_SOURCE,
         "replaces": replaces,
         "launches": (train_launches[kind] + attn_launches[kind]
-                     + vec_launches[kind] + attn_vec_launches[kind]),
+                     + vec_launches[kind] + attn_vec_launches[kind]
+                     + pol[kind]),
         "max_abs_err": max(bwd_worst[kind], bwd_main[kind]["max_abs_err"]),
         "ms": bwd_main[kind]["ms"], "plain_ms": bwd_main[kind]["plain_ms"],
         "bound_ms": bwd_main[kind]["bound_ms"],

@@ -1,5 +1,6 @@
 """Carry weights between the JAX package and this one: the DFP network's
-(below) and the LM zoo's (``lm_params_from_jax``).
+(below), the comparison policies' (``load_policy_params``) and the LM
+zoo's (``lm_params_from_jax``).
 
 The JAX package keeps the weights as a tree of nested dicts and lists,
 ``{"state" | "measurement" | "goal" | "expectation" | "action":
@@ -47,6 +48,20 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     flat: Dict[str, np.ndarray] = {}
     _flatten(tree, "", flat)
     return {k: torch.from_numpy(np.array(v)) for k, v in flat.items()}
+
+
+def load_policy_params(policy, tree) -> None:
+    """Copy a JAX policy's parameter tree into the port's counterpart, in
+    place, on the device its network lives on: ScalarRL's and CoSchedRL's
+    ``{"layers": [...]}``, DRAS's ``{"select": ..., "gate": ...}``, or the
+    MRSch agent's DFP tree (any state module).  Raises unless every leaf
+    matches by path and shape.  A policy that keeps Adam moments (ScalarRL,
+    the agent) starts them afresh, as the JAX policy's start."""
+    from .nn.optim import adam_init
+    net = policy.init_state()
+    net.load_state_dict(params_from_jax(tree), strict=True)
+    if hasattr(policy, "opt_state"):
+        policy.opt_state = adam_init([p for _, p in leaves(net)])
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:

@@ -53,7 +53,7 @@ class AgentConfig:
     eps_start: float = 1.0
     eps_decay: float = 0.995          # paper §IV-C: alpha = 0.995
     eps_min: float = 0.02
-    state_module: str = "mlp"         # "mlp" | "attention"
+    state_module: str = "mlp"         # "mlp" | "cnn" | "attention"
     backend: str = "kernel"           # "torch" | "kernel" (the CUDA kernels)
     state_hidden: Tuple[int, ...] = (4000, 1000)
     state_out: int = 512
@@ -115,6 +115,9 @@ class MRSchAgent:
         self.epsilon = config.eps_start
         self.training = False
         self.losses: List[float] = []
+        # The Eq. (1) goal of every decision, in order, on both selection
+        # paths and in both modes (the reference's ``goal_log``).
+        self.goal_log: List[np.ndarray] = []
         # Pre-clip global gradient norm, the mean over the latest burst.
         self.last_grad_norm: Optional[float] = None
 
@@ -160,6 +163,7 @@ class MRSchAgent:
         state = encode_state(self.enc, ctx)
         meas = encode_measurement(self.enc, ctx)
         goal = ctx_goal(ctx, self.enc.resource_names)
+        self.goal_log.append(goal)
         n_valid = min(len(ctx.window), self.config.window)
         if self.training and self.rng.uniform() < self.epsilon:
             action = int(self.rng.integers(0, n_valid))
@@ -200,7 +204,8 @@ class MRSchAgent:
         sd, m, a = self.enc.state_dim, self.enc.n_resources, self.config.window
         feats = np.zeros((n, decision_row_dim(self.enc, a)), dtype=np.float32)
         for i, c in enumerate(ctxs):
-            encode_decision_row(self.enc, c, a, out=feats[i])
+            self.goal_log.append(
+                encode_decision_row(self.enc, c, a, out=feats[i]))
         if not self.training:
             return self._greedy_rows(feats)
         acts = np.zeros(n, dtype=np.int32)

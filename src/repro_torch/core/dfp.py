@@ -3,9 +3,10 @@ MRSch (paper §II-B, §III, §IV-C), and its training loss.
 
 Three input modules:
   * state module   — MLP  state_dim -> 4000 -> 1000 -> 512 (leaky rectifier),
-                     or the queue-as-tokens attention encoder
+                     the queue-as-tokens attention encoder
                      (``repro_torch.nn.queue_encoder``) over the attention
-                     state layout;
+                     state layout, or the Fig. 3 ablation's CNN (1-D convs
+                     over the classic state vector, then a projection);
   * measurement    — 3 fully-connected layers of 128 units;
   * goal           — 3 fully-connected layers of 128 units.
 
@@ -23,8 +24,9 @@ The functions take the network (the weights) and a ``DFPConfig`` (the
 shape contract and the backend) separately, as the JAX package's take
 ``params`` and ``cfg``, so one set of weights runs on either backend.
 The inference functions run under ``torch.no_grad()``; ``loss_fn`` runs
-the same forward body with autograd on.  The "mlp" and "attention" state
-modules are ported; the CNN ablation is not.
+the same forward body with autograd on.  The CNN state module's convs and
+projection run as plain PyTorch ops on both backends, as the reference
+keeps them on plain XLA ops; its heads follow the backend.
 """
 from __future__ import annotations
 
@@ -34,12 +36,13 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..kernels.fused_mlp.ref import apply_activation
 from ..nn.backend import mlp_forward, resolve_backend
-from ..nn.modules import MLP
+from ..nn.modules import MLP, Conv1d, Dense, conv1d_apply
 from ..nn.queue_encoder import (QueueEncoder, QueueEncoderConfig,
                                 queue_state_features)
 
-STATE_MODULES = ("mlp", "attention")
+STATE_MODULES = ("mlp", "cnn", "attention")
 
 
 @dataclass(frozen=True)
@@ -53,7 +56,11 @@ class DFPConfig:
     state_out: int = 512
     module_hidden: int = 128                  # measurement/goal modules
     stream_hidden: int = 512
-    state_module: str = "mlp"                 # "mlp" | "attention"
+    state_module: str = "mlp"                 # "mlp" | "cnn" (Fig. 3 ablation)
+    #                                           | "attention" (queue encoder)
+    cnn_channels: Tuple[int, ...] = (8, 16)
+    cnn_width: int = 9
+    cnn_stride: int = 4
     # Queue-as-tokens attention state module (repro_torch.nn.queue_encoder),
     # read only when state_module == "attention".
     attn_queue: int = 128                     # Q: job-token buffer size
@@ -66,8 +73,8 @@ class DFPConfig:
     def __post_init__(self):
         resolve_backend(self.backend)
         if self.state_module not in STATE_MODULES:
-            raise ValueError(f"state_module {self.state_module!r} is not "
-                             f"ported; expected one of {STATE_MODULES}")
+            raise ValueError(f"unknown state_module {self.state_module!r}; "
+                             f"expected one of {STATE_MODULES}")
         if self.state_module == "attention":
             expect = (self.attn_queue * (self.n_measurements + 2) + 1
                       + 2 * self.n_measurements)
@@ -101,9 +108,39 @@ class DFPConfig:
         )
 
 
+class CNNState(nn.Module):
+    """The CNN ablation's state module: ``convs`` (stride ``cnn_stride``,
+    SAME padding) over the state vector as one channel, then ``proj`` from
+    the flattened (position-major) features to ``state_out``; the JAX
+    tree's ``{"convs": [...], "proj": {...}}``."""
+
+    def __init__(self, cfg: "DFPConfig", **kw):
+        super().__init__()
+        convs, in_ch, length = [], 1, cfg.state_dim
+        for ch in cfg.cnn_channels:
+            convs.append(Conv1d(in_ch, ch, cfg.cnn_width, **kw))
+            in_ch = ch
+            length = -(-length // cfg.cnn_stride)
+        self.convs = nn.ModuleList(convs)
+        self.proj = Dense(length * in_ch, cfg.state_out, **kw)
+
+
+def _cnn_features(state_net: CNNState, cfg: "DFPConfig",
+                  state: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch on both backends (the reference: "CNN ablation stays
+    on plain XLA ops")."""
+    x = state[..., :, None]                                        # (B, L, 1)
+    for conv in state_net.convs:
+        x = apply_activation(conv1d_apply(conv, x, stride=cfg.cnn_stride),
+                             "leaky_relu", 0.2)                    # (B, L', C)
+    x = x.reshape(*x.shape[:-2], -1)              # position-major, as JAX
+    return apply_activation(state_net.proj(x), "leaky_relu", 0.2)
+
+
 class DFPNetwork(nn.Module):
     """The DFP weights: one module per module of the JAX parameter tree
-(``MLP``s, and a ``QueueEncoder`` for the attention state module).
+(``MLP``s; a ``QueueEncoder`` for the attention state module, a
+``CNNState`` for the CNN one).
 
     The temporal weights of ``cfg`` are kept beside them as a buffer (not
     a parameter, not in the state dict), so scoring finds them on the
@@ -123,6 +160,8 @@ class DFPNetwork(nn.Module):
         joint = cfg.state_out + 2 * h
         if cfg.state_module == "attention":
             self.state = QueueEncoder(cfg.queue_encoder, **kw)
+        elif cfg.state_module == "cnn":
+            self.state = CNNState(cfg, **kw)
         else:
             self.state = MLP([cfg.state_dim, *cfg.state_hidden,
                               cfg.state_out], **kw)
@@ -140,6 +179,8 @@ def _predict(net: DFPNetwork, cfg: DFPConfig, state: torch.Tensor,
     if cfg.state_module == "attention":
         s = queue_state_features(net.state, cfg.queue_encoder, state,
                                  backend=be)
+    elif cfg.state_module == "cnn":
+        s = _cnn_features(net.state, cfg, state)
     else:
         s = mlp_forward(net.state, state, final_activation="leaky_relu",
                         backend=be)

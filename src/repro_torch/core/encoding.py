@@ -1,7 +1,7 @@
 """Vector state encoding (paper §III-A) plus the queue-as-tokens layout.
 
-Classic (``state_module`` "mlp") — each waiting job in the window ->
-(R + 2) elements:
+Classic (``state_module`` "mlp" / "cnn") — each waiting job in the
+window -> (R + 2) elements:
     [P_i1 .. P_iR,  walltime_estimate,  queued_time]
 where P_ij is the requested fraction of resource j's capacity and the two
 times are normalized by ``time_scale``.
@@ -37,7 +37,7 @@ from .goal import ctx_goal
 
 DAY = 86400.0
 
-STATE_MODULES = ("mlp", "attention")
+STATE_MODULES = ("mlp", "cnn", "attention")
 
 
 @dataclass(frozen=True)
@@ -46,7 +46,7 @@ class EncodingConfig:
     resource_names: Sequence[str]    # ordered resource list
     capacities: Sequence[int]        # units per resource
     time_scale: float = DAY          # normalizer for all time quantities
-    state_module: str = "mlp"        # "mlp" = classic layout;
+    state_module: str = "mlp"        # "mlp"/"cnn" share the classic layout;
     #                                  "attention" = queue-as-tokens layout
     queue_cap: int = 0               # Q, attention layout only (>= window)
 

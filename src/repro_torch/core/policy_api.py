@@ -82,8 +82,10 @@ class WindowPolicy:
         exploration RNG order) and must go through the policy's own
         ``select``/``select_batch`` implementation.
 
-    The host stage builds ``obs`` on the host (CPU tensors); the device
-    engine hands ``score_window`` its rows on the card.
+    The host stage builds ``obs`` on the host and copies it to the device
+    of the policy's network when ``init_state()`` is one (CPU tensors
+    otherwise); the device engine hands ``score_window`` its rows on its
+    own device.
     """
 
     requires_obs: bool = True
@@ -131,9 +133,14 @@ class WindowPolicy:
             obs = self._encode_rows(ctxs, n_actions)
         else:
             obs = mask.astype(np.float32)
+        state = self.init_state()
+        obs = torch.from_numpy(obs)
+        if isinstance(state, torch.nn.Module):
+            # Score where the network lives (the card unless the policy
+            # was built on the CPU).
+            obs = obs.to(next(state.parameters()).device)
         with torch.no_grad():
-            scores = self.score_window(self.init_state(),
-                                       torch.from_numpy(obs))
+            scores = self.score_window(state, obs)
         scores = np.where(mask, scores.cpu().numpy(), -np.inf)
         return np.argmax(scores, axis=1).astype(np.int32)
 

@@ -54,8 +54,9 @@ State layout (leading axis = environment), as in the reference:
 Times are float32 on the device, as in the reference, so an N=1 rollout
 reproduces the sequential engine's schedule with metrics equal to
 float32 precision.  Decision rows follow the policy's state module: the
-classic "mlp" layout or the "attention" queue-as-tokens layout, whose
-first ``queue_cap`` waiting jobs come from the same window pack.
+classic layout ("mlp" and "cnn") or the "attention" queue-as-tokens
+layout, whose first ``queue_cap`` waiting jobs come from the same window
+pack.
 """
 from __future__ import annotations
 
@@ -381,9 +382,11 @@ def _row_spec(layout: DeviceLayout, has_drains: bool) -> DecisionRowSpec:
     """What the front of every deciding round computes in this rollout.
     The attention module observes the first queue_cap waiting jobs; one
     pack covers both the Q-token state and (its leading W slots) the
-    action window."""
+    action window.  Every other state module ("mlp", "cnn") reads the
+    classic rows, as the reference treats every module but "attention"."""
     attention = layout.state_module == "attention"
-    mode = layout.state_module if layout.requires_obs else "mask"
+    mode = ("mask" if not layout.requires_obs
+            else "attention" if attention else "mlp")
     return DecisionRowSpec(
         mode=mode, window=layout.window,
         k=layout.queue_cap if attention else layout.window,

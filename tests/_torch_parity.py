@@ -161,3 +161,23 @@ def assert_results_close(a, b, rtol=1e-5, atol=1e-2):
         assert ja.jid == jb.jid and ja.started == jb.started
         if ja.started:
             assert np.isclose(ja.start, jb.start, rtol=1e-6, atol=1e-2)
+
+
+def guard_window_policy(policy, margins):
+    """Wrap a network policy's ``select_batch`` so every row's top-2
+    margin of its scores (float64, a copy of the network; invalid slots
+    out) is appended to ``margins``."""
+    select_batch = policy.select_batch
+    net = copy.deepcopy(policy.init_state()).double()
+
+    def guarded(ctxs):
+        w = policy.enc.window
+        obs = torch.from_numpy(policy._encode_rows(ctxs, w).astype(np.float64))
+        with torch.no_grad():
+            s = policy.score_window(net, obs).numpy()
+        for row, c in zip(s, ctxs):
+            valid = np.sort(row[:min(len(c.window), w)])
+            margins.append(valid[-1] - valid[-2] if len(valid) > 1 else np.inf)
+        return select_batch(ctxs)
+
+    policy.select_batch = guarded

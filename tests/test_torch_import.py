@@ -63,6 +63,14 @@ def test_scan_covers_every_slice():
                  "repro_torch.sim.device",
                  "repro_torch.core.policy_api",
                  "repro_torch.core.policies",
+                 "repro_torch.baselines",
+                 "repro_torch.baselines.prb",
+                 "repro_torch.baselines.cp",
+                 "repro_torch.baselines.dras",
+                 "repro_torch.baselines.cosched",
+                 "repro_torch.eval",
+                 "repro_torch.eval.matrix",
+                 "repro_torch.eval.tournament",
                  "repro_torch.core.replay",
                  "repro_torch.core.train",
                  "repro_torch.sim.vector",
