@@ -111,14 +111,23 @@ prints its wall seconds:
    logits within 1e-3 of the largest
    and argmax equal, B7 and B8 held against their plain versions (B8
    also the exact recurrence) on the first shared block's and Mamba2
-   layer's operands, and the float32 step's wall and device time; then in
+   layer's operands, the float32 step's wall and device time, and
+   float32 ``generate`` (the SSM states and the shared blocks' KV slots)
+   of 16 tokens after 64 of the batch's, with no B1-B8 launch, each new
+   token its step's argmax, every step's logits within 2e-3 of the
+   forward over the generated sequence (teacher forcing); then in
    bfloat16 the step's wall and device time, a
    profiled breakdown by kernel group, and both kernels timed on the
    step's operands (B8 also pass by pass, in both dtypes) beside their
    bounds, plain versions and (B7) SDPA
    with ``is_causal`` (the library yardstick, which the port never calls);
+   then the same ``generate`` in bfloat16, its logits against the forward
+   at the bfloat16 limit, decode tokens/s, synchronising calls (``torch.cuda.set_sync_debug_mode``)
+   and one step's device operations;
 16. LM widths: gemma-2b (dh 256, MQA; depth cut to 2 of 18 layers) and
-   mamba2-1.3b (N 128; 4 of 48) at full width through the checks of 15;
+   mamba2-1.3b (N 128; 4 of 48) at full width through the checks of 15,
+   and in float32 ``generate`` of 8 tokens after 32 held as 15's within
+   2e-3 (the reference's decode tolerance);
 17. the lockstep engine (run after 13): ``run_traces`` of a paper-width
    agent (seed 0, as in 6) over the full-scale S1 traces of seeds 1-8 as
    eight lanes, against the sequential ``run_trace`` of each (every
@@ -181,7 +190,24 @@ prints its wall seconds:
    within 2e-4 of the torch backend's with 10 B1 launches, the device
    rollout against the sequential run, one ``train_agent`` episode with
    exactly 10/8/10 B1/B2/B3 launches a step and one step on both
-   backends.
+   backends;
+23. LM MoE (run after 16): deepseek-v2-lite-16b (MLA, 64 routed experts
+   of 1408 + 2 shared, top 6, a dense first layer).  In float32 at full
+   width, depth cut to the dense layer and 3 MoE layers, the prefill
+   step on both backends at B = 2, S = 4096 (4 B7 launches, all
+   ``flash_fwd``; logits as 15) and B7 against its plain version on the
+   first MLA layer's operands; then at full width and depth in bfloat16
+   (15,706,484,224 parameters from seed 0): the prefill step on both
+   backends (27 B7 launches, all ``flash_fwd_sm90``, none on the torch
+   backend), B7 held against its plain version and timed on the first
+   MLA layer's operands (q and k of 192, v padded from 128 to 192)
+   beside its bound and SDPA on the same padded call, the step's wall and
+   device time and profiled breakdown, and ``generate`` of 32 tokens
+   after 64 (capacity factor 16, dropless) checked as 15's; last the same
+   draws in float32 at full depth: the prefill step on both backends (27
+   B7 launches, all ``flash_fwd``; logits within 1e-3 as 15),
+   ``generate`` held within 2e-3, and the bfloat16 run's forward and
+   decode logits against the float32 forward of its tokens.
 
 The line before the last is a JSON summary of the kernels (B1's times
 are the 13 DFP layers' at M = 64; B1, B2, B3, B5 and B6 count the
@@ -189,8 +215,9 @@ launches of 17-22 too; ``window_pack``'s times are the fused round
 front's on the MLP path's median round, its plain time the composite's,
 its launches both device paths' and 22's), B7 as two
 entries: ``flash_attention`` (``flash_fwd_sm90.cu``, bfloat16; its launches
-are the bfloat16 prefill step's) and ``flash_attention_f32``
-(``flash_fwd.cu``; the float32 prefill steps'); the last line is
+are the bfloat16 prefill steps' of 15 and 23, its times zamba2-7b's)
+and ``flash_attention_f32`` (``flash_fwd.cu``; the float32 prefill
+steps' of 15, 16 and 23); the last line is
 ``{"ok": true, "device": {...}}``.  Without a
 CUDA device the script exits non-zero before printing either.
 """
@@ -340,6 +367,32 @@ LM_PREFILL = {"flash_attention": 13, "ssd": 81}
 # (arch, depth, B, S, launches per forward) at full width.
 LM_WIDTHS = (("gemma-2b", 2, 1, 4096, {"flash_attention": 2}),
              ("mamba2-1.3b", 4, 2, 3000, {"ssd": 4}))
+# Decode (generate) after a prompt of 64 tokens: 32 new (deepseek) or 16
+# (zamba2-7b) in phases 15 and 23; 8 after 32 in 16.  Each decode step's
+# logits are held against the forward over the generated sequence: in
+# float32 at the reference's decode tolerance (tests/test_models.py::
+# test_decode_matches_forward), relative to max(1, |logit|).
+GEN_PROMPT, GEN_NEW, ZAMBA_GEN_NEW = 64, 32, 16
+WIDTHS_PROMPT, WIDTHS_NEW = 32, 8
+GEN_CAPACITY = 16.0              # MoE capacity factor of the decode checks
+DECODE_TOL = 2e-3
+# bfloat16 logits of a deep stack against another bfloat16 computation of
+# them that rounds differently (B7 against the scan; absorbed MLA decode
+# against the decompressed forward): bfloat16 rounds every layer's output
+# to 8 bits of mantissa, and over tens of layers of random weights the
+# rounding compounds (and flips top-6 routing choices), so the two differ
+# by a sizeable share of the logit scale.  This limit catches a wrong
+# layer, slot or mask, whose logits are unrelated (errors of the order of
+# the scale), not rounding; float32 carries the tight checks.
+LM_BF16_TOL = 0.5
+# deepseek-v2-lite-16b (phase 23, cell (o)): full width and depth in
+# bfloat16, B7 once per MLA layer (27) at S = 4096; float32 at full width
+# with depth cut to the dense layer and 3 MoE layers.  MOE_PARAMS counts
+# every leaf (``param_count()`` leaves out the 126,464 norm scales).
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_PREFILL = {"flash_attention": 27}
+MOE_F32_DEPTH = 4
+MOE_PARAMS = 15_706_484_224
 PEAK_BF16_FLOP_PER_S = 989e12
 # TF32 on the tensor cores (dense): B7's float32 kernel does each product as
 # three TF32 products (3xTF32), so its least time is 3 flops / this rate.
@@ -3120,13 +3173,15 @@ def phase_ssd_parity() -> float:
 
 class FirstCalls:
     """Within the block, keeps the arguments of the first call the models
-    make to ``flash_attention`` (B7) and to ``ssd`` (B8), and passes every
-    call through to the wrapper (which launches and counts as usual)."""
+    make to ``flash_attention`` (B7, from attention or MLA) and to ``ssd``
+    (B8), and passes every call through to the wrapper (which launches and
+    counts as usual)."""
 
     def __enter__(self):
-        from repro_torch.models import attention, mamba2
+        from repro_torch.models import attention, mamba2, mla
         self.calls = {}
-        self.sites = ((attention, "flash_attention"), (mamba2, "ssd"))
+        self.sites = ((attention, "flash_attention"),
+                      (mla, "flash_attention"), (mamba2, "ssd"))
         self.saved = [getattr(m, name) for m, name in self.sites]
         for (mod, name), fn in zip(self.sites, self.saved):
             def rec(*args, _fn=fn, _name=name, **kw):
@@ -3140,10 +3195,13 @@ class FirstCalls:
             setattr(mod, name, fn)
 
 
-def lm_kernel_closures(calls: dict) -> dict:
+def lm_kernel_closures(calls: dict, dv: int | None = None) -> dict:
     """For each recorded call: the kernel, its plain version and the
     library yardstick (SDPA with ``is_causal`` for B7; none computes B8) as
-    closures; the float32 plain output's tolerance; and the bound."""
+    closures; the float32 plain output's tolerance; and the bound.  ``dv``:
+    the columns of B7's v that the model uses where the recorded v is
+    zero-padded to q's width (MLA); the bound counts only those, in the
+    P V product and in v's and o's bytes."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
     from repro_torch.kernels.ssd import ssd, ssd_plain
@@ -3153,6 +3211,7 @@ def lm_kernel_closures(calls: dict) -> dict:
         causal = kw.get("causal", True)
         b, sq, h, dh = q.shape
         sk, kv = k.shape[1], k.shape[2]
+        dv = dv or dh
         lib_args = [t.transpose(1, 2) for t in (q, k, v)]
         pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
                  else sq * sk)
@@ -3162,9 +3221,12 @@ def lm_kernel_closures(calls: dict) -> dict:
             lib=lambda: F.scaled_dot_product_attention(
                 *lib_args, is_causal=causal, enable_gqa=kv != h),
             tol=FLASH_TOL[q.dtype],
-            shape=f"B={b} S={sq} H={h} KV={kv} dh={dh} {q.dtype}",
-            nbytes=q.element_size() * (2 * q.numel() + 2 * k.numel()),
-            flops=4.0 * b * h * pairs * dh, dtype=q.dtype)
+            shape=(f"B={b} S={sq} H={h} KV={kv} dh={dh} "
+                   + (f"dv={dv} padded to {dh} " if dv != dh else "")
+                   + str(q.dtype)),
+            nbytes=q.element_size() * (q.numel() + k.numel()
+                                       + b * (sk * kv + sq * h) * dv),
+            flops=2.0 * b * h * pairs * (dh + dv), dtype=q.dtype)
     if "ssd" in calls:
         (x, dt, dA, bm, cm), kw = calls["ssd"]
         chunk, odt = kw["chunk"], kw.get("out_dtype") or x.dtype
@@ -3227,27 +3289,39 @@ def check_recorded(calls: dict, tag: str) -> dict:
     return errs
 
 
-def prefill_parity(cfg, params, batch, expect: dict, tag: str) -> tuple:
-    """One float32 prefill step on each backend, the kernel one with the
-    launch counts set to 0 just before and read just after (every B7 launch
-    on ``flash_fwd``); the last-token logits compared.  Returns (counts,
-    recorded first calls, max abs err)."""
+def prefill_parity(cfg, params, batch, expect: dict, tag: str,
+                   tol: float = LM_TOL) -> tuple:
+    """One prefill step on each backend, each with the launch counts set
+    to 0 just before and read just after: the kernel backend's every B7
+    launch on the kernel of the parameters' dtype (``flash_fwd`` for
+    float32, ``flash_fwd_sm90`` for bfloat16), the torch backend's none;
+    the last-token logits compared within ``tol`` of the largest.
+    Returns (counts, recorded first calls, max abs err)."""
     from repro_torch.launch import make_prefill_step
+    b7 = ("flash_fwd_sm90" if params.embed.table.dtype == torch.bfloat16
+          else "flash_fwd")
+    # clone(): the step's last-token logits are a view of the whole
+    # sequence's (3.4 GB for deepseek at B = 2, S = 4096); keep only them.
     reset_launch_counts()
     with FirstCalls() as calls:
-        got = make_prefill_step(cfg, "kernel")(params, batch)
+        got = make_prefill_step(cfg, "kernel")(params, batch).clone()
         torch.cuda.synchronize()
     counts, by_kernel = launch_counts(), flash_kernel_launches()
     by_pass = ssd_kernel_launches()
-    want = make_prefill_step(cfg, "torch")(params, batch)
+    reset_launch_counts()
+    want = make_prefill_step(cfg, "torch")(params, batch).clone()
     torch.cuda.synchronize()
-    if counts != times(expect, 1) or by_kernel != {
-            "flash_fwd": counts["flash_attention"], "flash_fwd_sm90": 0} \
-            or by_pass != dict.fromkeys(SSD_PASSES, counts["ssd"]):
+    plain_counts = launch_counts()
+    want_b7 = {"flash_fwd": 0, "flash_fwd_sm90": 0}
+    want_b7[b7] = counts["flash_attention"]
+    if counts != times(expect, 1) or by_kernel != want_b7 \
+            or by_pass != dict.fromkeys(SSD_PASSES, counts["ssd"]) \
+            or any(plain_counts.values()):
         raise AssertionError(f"[{tag}] launches per forward {counts}, B7 by "
-                             f"kernel {by_kernel}, B8 by kernel {by_pass}; "
-                             f"expected {times(expect, 1)}, all B7 on "
-                             f"flash_fwd, each B8 kernel once a call")
+                             f"kernel {by_kernel}, B8 by kernel {by_pass}, "
+                             f"torch backend {plain_counts}; expected "
+                             f"{times(expect, 1)}, all B7 on {b7}, each B8 "
+                             f"kernel once a call, none on the torch backend")
     b = got.shape[0]
     if got.shape != want.shape or not torch.isfinite(got).all():
         raise AssertionError(f"[{tag}] logits {tuple(got.shape)}, finite "
@@ -3261,8 +3335,9 @@ def prefill_parity(cfg, params, batch, expect: dict, tag: str) -> tuple:
         f"{tuple(got.shape)}, max |logit| {scale:.4f}, kernel vs torch "
         f"backend max abs err {err!r}; argmax agree on "
         f"{int(agree.sum())}/{b} rows ({int(decisive.sum())} decisive); "
-        f"launches per forward {counts}; B8 by kernel {by_pass}")
-    if err > LM_TOL * max(1.0, scale) or not bool(agree[decisive].all()):
+        f"launches per forward {counts}; B8 by kernel {by_pass}; "
+        f"{params.embed.table.dtype}, tol {tol} of max(1, |logit|)")
+    if err > tol * max(1.0, scale) or not bool(agree[decisive].all()):
         raise AssertionError(f"[{tag}] kernel backend disagrees with the "
                              f"torch backend: max abs err {err}")
     return counts, calls, err
@@ -3279,6 +3354,13 @@ LM_GROUPS = (("B7 flash attention", ("flash_fwd_kernel",
                                      "flash_fwd_sm90_kernel")),
              ("B8 ssd", SSD_PASSES),
              ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
+             # MoE routing, dispatch and combine: the top-k, the stable
+             # sort and search of _positions_in_expert, the scatter into
+             # the expert buffer and the gather back (ahead of
+             # "elementwise": aten names its indexing kernels
+             # index_elementwise_kernel).
+             ("index, sort, top-k", ("index", "scatter", "gather", "sort",
+                                     "radix", "searchsorted", "topk")),
              ("elementwise", ("elementwise", "vectorized", "unrolled")),
              ("reduce", ("reduce",)))
 
@@ -3352,14 +3434,15 @@ def phase_lm_prefill() -> dict:
     seed 0: the prefill step on both backends in float32 at B = 2 of
     S = 4096 and S = 3000 (13 B7 and 81 B8 launches per forward on the
     kernel backend), B7 and B8 held against their plain versions on the
-    first shared block's and Mamba2 layer's operands; then in bfloat16 the
-    step's wall and device time, a profiled breakdown by kernel group, and
-    both kernels timed on the operands the step gives them."""
+    first shared block's and Mamba2 layer's operands, and ``generate`` held
+    against the forward at the decode tolerance; then in bfloat16 the
+    step's wall and device time, a profiled breakdown by kernel group,
+    both kernels timed on the operands the step gives them, and
+    ``generate`` again."""
     from repro_torch.configs import InputShape, get_config
     from repro_torch.data import make_batch
     from repro_torch.launch import make_prefill_step
     from repro_torch.models import init_params
-    from torch.profiler import ProfilerActivity, profile
     cfg = get_config("zamba2-7b")
     shapes = [InputShape("prefill", s, 2, "prefill") for s in LM_PREFILL_S]
     batches = [make_batch(cfg, sh, step=i, device="cuda")
@@ -3408,6 +3491,11 @@ def phase_lm_prefill() -> dict:
                     f"on the CUDA cores {c['fma_bound_ms']:.4f} ms)")
             out["f32"]["ssd_passes"] = ssd_pass_ms(calls, flush, "float32")
         del calls
+    # Decode in float32 (the SSM states and the shared blocks' KV slots) at
+    # the reference's decode tolerance; the bfloat16 run below times it.
+    out["generate_f32"] = generate_check(
+        cfg, params, batches[0]["tokens"][:, :GEN_PROMPT], ZAMBA_GEN_NEW,
+        DECODE_TOL, "lm prefill generate")
     del params
     free_cuda()
 
@@ -3437,6 +3525,31 @@ def phase_lm_prefill() -> dict:
     out["bf16_err"] = {}
     log(f"[lm prefill] bfloat16 step, B=2 S={LM_PREFILL_S[0]}: launches per "
         f"forward {counts}; B7 by kernel {by_kernel}; B8 by kernel {by_pass}")
+    out["bf16_step"] = step_report(step, params, batch, "lm prefill")
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    log(f"[lm prefill] kernel times in bfloat16 on the step's first "
+        f"operands; bounds from {PEAKS_BF16}; card: "
+        f"{gpu_name_and_power_limit()}")
+    for name, t in recorded_times(calls, flush, "lm prefill").items():
+        out["bf16_err"][name] = t.pop("max_abs_err")
+        out[name] = t
+    out["ssd_passes"] = ssd_pass_ms(calls, flush, "bfloat16 in")
+    del calls, flush
+    # Decode in bfloat16, for its time (float32 carries the tight check).
+    out["generate"] = generate_check(
+        cfg, params, batch["tokens"][:, :GEN_PROMPT], ZAMBA_GEN_NEW,
+        LM_BF16_TOL, "lm prefill generate")
+    del params
+    free_cuda()
+    return out
+
+
+def step_report(step, params, batch, tag: str) -> dict:
+    """Wall (median of 3 waited-for calls) and device time (CUDA events,
+    L2 flushed) of a warmed-up prefill step, and a profiled breakdown of
+    one call by kernel group (``LM_GROUPS``) with its busiest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    b, s = batch["tokens"].shape
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -3446,6 +3559,7 @@ def phase_lm_prefill() -> dict:
         walls.append((time.perf_counter() - t0) * 1e3)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     dev = device_ms(lambda: step(params, batch), flush, reps=3)
+    del flush
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step(params, batch)
         torch.cuda.synchronize()
@@ -3453,57 +3567,160 @@ def phase_lm_prefill() -> dict:
     prof_ms = sum(e.self_device_time_total for e in events) / 1e3
     assert prof_ms > 0, "the profiled step shows no device time"
     wall = statistics.median(walls)
-    log(f"[lm prefill] bfloat16 step, B=2 S={LM_PREFILL_S[0]}: wall "
+    log(f"[{tag}] {params.embed.table.dtype} step, B={b} S={s}: wall "
         f"{wall:.2f} ms (median of 3; {', '.join(f'{w:.2f}' for w in walls)})"
         f", device {dev:.2f} ms (CUDA events, L2 flushed, median of 3), "
         f"profiled device time {prof_ms:.2f} ms, busy share "
-        f"{prof_ms / wall:.4f}; {2 * LM_PREFILL_S[0] / wall * 1e3:.0f} "
-        f"prompt tokens/s")
+        f"{prof_ms / wall:.4f}; {b * s / wall * 1e3:.0f} prompt tokens/s; "
+        f"card {gpu_name_and_power_limit()}")
     groups = {name: 0.0 for name, _ in LM_GROUPS}
     groups["other"] = 0.0
     for e in events:
         key = e.key.lower()
         name = next((g for g, keys in LM_GROUPS
-                     if any(s in key for s in keys)), "other")
+                     if any(k in key for k in keys)), "other")
         groups[name] += e.self_device_time_total / 1e3
     for name, ms in groups.items():
-        log(f"[lm prefill]   {name:20s} {ms:10.3f} ms ({ms / prof_ms:.3f})")
-    b8 = {k: sum(e.self_device_time_total for e in events
-                 if k in e.key.lower()) / 1e3 for k in SSD_PASSES}
-    log(f"[lm prefill]   B8 by kernel: " + ", ".join(
-        f"{k} {v:.3f} ms" for k, v in b8.items())
-        + f"; sum {sum(b8.values()):.3f} ms against the group's "
-        f"{groups['B8 ssd']:.3f} ms")
+        log(f"[{tag}]   {name:28s} {ms:10.3f} ms ({ms / prof_ms:.3f})")
+    if groups["B8 ssd"]:
+        b8 = {k: sum(e.self_device_time_total for e in events
+                     if k in e.key.lower()) / 1e3 for k in SSD_PASSES}
+        log(f"[{tag}]   B8 by kernel: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in b8.items())
+            + f"; sum {sum(b8.values()):.3f} ms against the group's "
+            f"{groups['B8 ssd']:.3f} ms")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"[lm prefill]   {e.self_device_time_total / 1e3:10.3f} ms "
+        log(f"[{tag}]   {e.self_device_time_total / 1e3:10.3f} ms "
             f"x{e.count:5d}  {e.key[:90]}")
-    log(f"[lm prefill] kernel times in bfloat16 on the step's first "
-        f"operands; bounds from {PEAKS_BF16}; card: "
-        f"{gpu_name_and_power_limit()}")
-    for name, c in lm_kernel_closures(calls).items():
+    return {"wall_ms": wall, "device_ms": dev, "profiled_ms": prof_ms,
+            "groups": groups}
+
+
+def recorded_times(calls: dict, flush: torch.Tensor, tag: str,
+                   dv: int | None = None) -> dict:
+    """Each recorded kernel call held against its plain version (B8 also
+    two calls bit-equal), then timed beside its plain version, the library
+    yardstick and its bound (``dv`` as in ``lm_kernel_closures``) ->
+    {name: ms, plain_ms, library_ms, bound_ms, bound_by, max_abs_err}."""
+    out = {}
+    for name, c in lm_kernel_closures(calls, dv).items():
         ok, err = within(c["run"](), c["ref"](), c["tol"])
         if not ok:
-            raise AssertionError(f"[lm prefill] {name} bfloat16 on the "
-                                 f"path's operands: max abs err {err}")
-        out["bf16_err"][name] = err
+            raise AssertionError(f"[{tag}] {name} on the path's operands "
+                                 f"({c['shape']}): max abs err {err}")
         if name == "ssd" and not torch.equal(c["run"](), c["run"]()):
-            raise AssertionError("[lm prefill] ssd bfloat16 on the path's "
-                                 "operands: two calls differ")
+            raise AssertionError(f"[{tag}] ssd on the path's operands: two "
+                                 f"calls differ")
         t = {k: device_ms(c[k], flush, reps=5) if c[k] else None
              for k in ("run", "ref", "lib")}
         out[name] = {"ms": t["run"], "plain_ms": t["ref"],
                      "library_ms": t["lib"], "bound_ms": c["bound_ms"],
-                     "bound_by": c["bound_by"]}
+                     "bound_by": c["bound_by"], "max_abs_err": err}
         lib = "none" if t["lib"] is None else f"{t['lib']:.4f} ms"
-        log(f"[lm prefill] {name} ({c['shape']}): kernel {t['run']:.4f} ms "
+        log(f"[{tag}] {name} ({c['shape']}): kernel {t['run']:.4f} ms "
             f"({c['flops'] / t['run'] / 1e9:.2f} TFLOP/s)  "
             f"plain {t['ref']:.4f} ms  library {lib}  bound "
             f"{c['bound_ms']:.4f} ms ({c['bound_by']}); max abs err vs plain "
             f"{err!r} (tol {c['tol']})")
-    out["ssd_passes"] = ssd_pass_ms(calls, flush, "bfloat16 in")
-    del params, calls
-    free_cuda()
     return out
+
+
+class StepLogits:
+    """Within the block, keeps a copy of the last position's logits of
+    every decode step (``transformer.decode_step``, which the decode step
+    of ``make_decode_step`` calls), in order."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+        self.mod, self.saved, self.logits = transformer, \
+            transformer.decode_step, []
+
+        def rec(*args, **kw):
+            logits, cache = self.saved(*args, **kw)
+            self.logits.append(logits[:, -1].clone())
+            return logits, cache
+        transformer.decode_step = rec
+        return self.logits
+
+    def __exit__(self, *exc):
+        self.mod.decode_step = self.saved
+
+
+def generate_check(cfg, params, prompts, new: int, tol: float,
+                   tag: str) -> dict:
+    """Greedy ``generate`` of ``new`` tokens after ``prompts``, its cache
+    in the parameters' dtype: no B1-B8 launch (decode runs none); the
+    synchronising CUDA calls it makes (``torch.cuda.set_sync_debug_mode``);
+    each new token the argmax of its step's logits; every step's logits
+    (prompt and new tokens) held against ``forward`` over the generated
+    sequence (teacher forcing) within ``tol`` of the largest, argmax equal
+    on the decisive rows; then one decode step profiled for its device
+    operations and time."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import make_decode_step
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import forward, init_cache
+    dtype = params.embed.table.dtype
+    b, s0 = prompts.shape
+    reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                StepLogits() as steps:
+            warnings.simplefilter("always")
+            gen = generate(cfg, params, prompts, max_new_tokens=new,
+                           dtype=dtype)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    counts = launch_counts()
+    tokens = gen["tokens"]
+    got = torch.stack(steps, dim=1)                       # (B, S, V)
+    if any(counts.values()) or tuple(tokens.shape) != (b, s0 + new) \
+            or got.shape[1] != s0 + new:
+        raise AssertionError(f"[{tag}] launches {counts}, tokens "
+                             f"{tuple(tokens.shape)}, {got.shape[1]} steps")
+    if not torch.equal(tokens[:, s0:], got[:, s0 - 1:-1].argmax(-1)):
+        raise AssertionError(f"[{tag}] a new token is not its step's argmax")
+    want = forward(params, cfg, {"tokens": tokens})
+    rows = (got - want).abs().amax(-1)
+    err, scale = float(rows.max()), float(want.abs().max())
+    top2 = want.topk(2, dim=-1).values
+    decisive = (top2[..., 0] - top2[..., 1]) > 2 * rows
+    agree = got.argmax(-1) == want.argmax(-1)
+    ms_step = 1e3 * b / gen["decode_tps"]
+    log(f"[{tag}] {cfg.name} {dtype}, B={b}, prompt {s0}, {new} new: "
+        f"decode {gen['decode_tps']:.1f} tokens/s, {ms_step:.3f} ms a step "
+        f"({ms_step / b:.3f} ms a token); {syncs} synchronising calls in "
+        f"{s0 + new} steps ({syncs / new:.3f} per new token); each step's "
+        f"logits vs the teacher-forced forward: max abs err {err!r} (max "
+        f"|logit| {scale:.4f}, tol {tol} of max(1, |logit|)); argmax agree "
+        f"on {int(agree.sum())}/{agree.numel()} rows "
+        f"({int(decisive.sum())} decisive)")
+    if not torch.isfinite(got).all() or err > tol * max(1.0, scale) \
+            or not bool(agree[decisive].all()):
+        raise AssertionError(f"[{tag}] decode disagrees with the forward: "
+                             f"max abs err {err}")
+    step = make_decode_step(cfg)
+    cache = init_cache(cfg, b, s0 + new, dtype, device="cuda")
+    nxt = {"tokens": tokens[:, -1:]}
+    step(params, nxt, cache, s0 + new - 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(params, nxt, cache, s0 + new - 1)
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    ops = sum(e.count for e in events)
+    dev = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"[{tag}] one decode step (pos {s0 + new - 1}): {ops} device "
+        f"operations, {dev:.3f} ms of device time against {ms_step:.3f} ms "
+        f"of wall (busy {dev / ms_step:.4f}); B1-B8 launches 0")
+    return {"decode_tps": gen["decode_tps"], "ms_step": ms_step,
+            "syncs": syncs, "err": err, "ops_step": ops, "device_ms": dev,
+            "tokens": tokens, "steps": got, "forward": want}
 
 
 def phase_lm_widths() -> dict:
@@ -3530,9 +3747,123 @@ def phase_lm_widths() -> dict:
             out["launches"][k] += counts[k]
         for k, e in check_recorded(calls, "lm widths").items():
             out["err"][k] = max(out["err"].get(k, 0.0), e)
-        del params, calls
+        del calls
+        generate_check(cfg, params, batch["tokens"][:, :WIDTHS_PROMPT],
+                       WIDTHS_NEW, DECODE_TOL, "lm widths generate")
+        del params
         free_cuda()
     return out
+
+
+def phase_lm_moe() -> dict:
+    """deepseek-v2-lite-16b (cell (o)): MLA and MoE.  First at full width
+    cut to its dense layer and 3 MoE layers in float32: the prefill step
+    on both backends at B = 2, S = 4096 (B7 ``flash_fwd`` once a layer),
+    B7 held against its plain version on the first MLA layer's operands.
+    Then at full width and depth in bfloat16, weights from seed 0: the
+    prefill step on both backends (27 B7 launches, all
+    ``flash_fwd_sm90``), B7 held against its plain version and timed on
+    the first MLA layer's operands (dh 192, v padded from 128), the step's
+    wall and device time and profiled breakdown, and ``generate`` of 32
+    tokens after a 64-token prompt, each step held against the forward.
+    Last the same weights in float32 at full depth: the prefill step on
+    both backends, ``generate`` held against the forward at the
+    reference's decode tolerance, and the
+    bfloat16 run's logits against the float32 forward of its tokens."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch import make_prefill_step
+    from repro_torch.models import forward, init_params
+    full = get_config(MOE_ARCH)
+    batch = make_batch(full, InputShape("prefill", LM_PREFILL_S[0], 2,
+                                        "prefill"), device="cuda")
+    prompts = batch["tokens"][:, :GEN_PROMPT]
+    out = {"err": {}}
+
+    def made(cfg, dtype):
+        gen = torch.Generator("cuda").manual_seed(0)
+        return init_params(cfg, generator=gen, device="cuda", dtype=dtype)
+
+    cfg = replace(full, n_layers=MOE_F32_DEPTH)
+    params = made(cfg, torch.float32)
+    log(f"[lm moe] {cfg.name} float32, depth cut from {full.n_layers} to "
+        f"{cfg.n_layers} layers ({cfg.moe.first_dense_layers} dense, "
+        f"{cfg.n_layers - cfg.moe.first_dense_layers} MoE) at full width")
+    counts, calls, err = prefill_parity(
+        cfg, params, batch, {"flash_attention": MOE_F32_DEPTH}, "lm moe")
+    out["f32_launches"] = counts["flash_attention"]
+    out["err"]["logits_f32"] = err
+    out["err"]["flash_attention_f32"] = check_recorded(
+        calls, "lm moe")["flash_attention"]
+    del params, calls
+    free_cuda()
+
+    t0 = time.perf_counter()
+    params = made(full, torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    m, e = full.mla, full.moe
+    log(f"[lm moe] {full.name}: d_model {full.d_model}, {full.n_layers} "
+        f"layers ({e.first_dense_layers} dense), {full.n_heads} MLA heads "
+        f"(kv rank {m.kv_lora_rank}, q/k {m.qk_nope_head_dim} + "
+        f"{m.qk_rope_head_dim}, v {m.v_head_dim}), {e.n_routed} experts of "
+        f"{e.d_expert} + {e.n_shared} shared, top {e.top_k}, vocab "
+        f"{full.vocab_size}: {n_params} parameters "
+        f"({2 * n_params / 1e9:.2f} GB bfloat16; param_count() "
+        f"{full.param_count()[0]} leaves out the norm scales), made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if n_params != MOE_PARAMS:
+        raise AssertionError(f"[lm moe] {n_params} parameters, expected "
+                             f"{MOE_PARAMS}")
+    counts, calls, err = prefill_parity(full, params, batch, MOE_PREFILL,
+                                        "lm moe", tol=LM_BF16_TOL)
+    out["bf16_launches"] = counts["flash_attention"]
+    out["err"]["logits_bf16"] = err
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    log(f"[lm moe] B7 on the first MLA layer's operands (v padded to q's "
+        f"192 columns; SDPA on the same padded call; the bound counts v's "
+        f"{m.v_head_dim} columns); bounds from "
+        f"{PEAKS_BF16}; card: {gpu_name_and_power_limit()}")
+    out["flash_attention"] = recorded_times(
+        calls, flush, "lm moe", dv=m.v_head_dim)["flash_attention"]
+    del calls, flush
+    out["bf16_step"] = step_report(make_prefill_step(full, "kernel"), params,
+                                   batch, "lm moe")
+    gen = generate_check(dropless(full), params, prompts, GEN_NEW,
+                         LM_BF16_TOL, "lm moe generate")
+    del params
+    free_cuda()
+
+    params = made(full, torch.float32)
+    log(f"[lm moe] {full.name} float32 at full depth: "
+        f"{4 * n_params / 1e9:.2f} GB")
+    counts, calls, err = prefill_parity(full, params, batch, MOE_PREFILL,
+                                        "lm moe")
+    out["f32_launches"] += counts["flash_attention"]
+    out["err"]["logits_f32"] = max(out["err"]["logits_f32"], err)
+    del calls
+    out["f32_generate"] = generate_check(dropless(full), params, prompts,
+                                         GEN_NEW, DECODE_TOL,
+                                         "lm moe generate")
+    want = forward(params, dropless(full), {"tokens": gen["tokens"]})
+    log(f"[lm moe] the bfloat16 run's logits against the float32 forward of "
+        f"its tokens (the same draws, unrounded): forward max abs err "
+        f"{float((gen['forward'] - want).abs().max())!r}, decode steps "
+        f"{float((gen['steps'] - want).abs().max())!r} (max |logit| "
+        f"{float(want.abs().max()):.4f})")
+    out["generate"] = {k: v for k, v in gen.items()
+                       if not isinstance(v, torch.Tensor)}
+    del params, gen, want
+    free_cuda()
+    return out
+
+
+def dropless(cfg):
+    """``cfg`` with MoE capacity factor 16, dropless at the decode checks'
+    sizes: which choices are dropped depends on how many tokens a call
+    routes, so it would differ between a step of B tokens and a forward of
+    B x S (the reference's test_decode_matches_forward does the same)."""
+    return replace(cfg, moe=replace(cfg.moe, capacity_factor=GEN_CAPACITY))
 
 
 def main() -> int:
@@ -3548,24 +3879,30 @@ def main() -> int:
     kernels = scheduling_paths()
     lm = timed("lm prefill", phase_lm_prefill)
     widths = timed("lm widths", phase_lm_widths)
+    moe = timed("lm moe", phase_lm_moe)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels += [{
-        # B7 in bfloat16: the bfloat16 prefill step's launches and times.
+        # B7 in bfloat16: the bfloat16 prefill steps' launches (zamba2-7b's
+        # and deepseek's); the times at zamba2-7b's shape.
         "name": "flash_attention", "route": "cuda",
         "source": FLASH_SM90_SOURCE, "replaces": FLASH_REPLACES,
-        "launches": lm["bf16_launches"]["flash_attention"],
+        "launches": (lm["bf16_launches"]["flash_attention"]
+                     + moe["bf16_launches"]),
         "max_abs_err": max(flash_worst[torch.bfloat16],
-                           lm["bf16_err"]["flash_attention"]),
+                           lm["bf16_err"]["flash_attention"],
+                           moe["flash_attention"]["max_abs_err"]),
         **{k: lm["flash_attention"][k] for k in keys},
     }, {
         # B7 in float32: the float32 prefill steps' launches and times.
         "name": "flash_attention_f32", "route": "cuda",
         "source": FLASH_F32_SOURCE, "replaces": FLASH_REPLACES,
         "launches": (lm["launches"]["flash_attention"]
-                     + widths["launches"]["flash_attention"]),
+                     + widths["launches"]["flash_attention"]
+                     + moe["f32_launches"]),
         "max_abs_err": max(flash_worst[torch.float32],
                            lm["err"]["flash_attention"],
-                           widths["err"].get("flash_attention", 0.0)),
+                           widths["err"].get("flash_attention", 0.0),
+                           moe["err"]["flash_attention_f32"]),
         **{k: lm["f32"]["flash_attention"][k] for k in keys},
     }, {
         "name": "ssd", "route": "cuda", "source": SSD_SOURCE,

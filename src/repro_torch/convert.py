@@ -77,9 +77,13 @@ def lm_params_from_jax(tree, cfg, *, device=None):
     init_params``) for ``cfg`` as this package's ``models.LM``, same dtype,
     on ``device`` (``None`` means the card, as ``init_params`` resolves it).
     The reference stacks the layers along a leading L dim; here leaf
-    ``stack.<name>`` of shape (L, ...) becomes ``stack.<i>.<name>`` for
-    i < L.  ``shared_blocks`` keep their list order; weights stay
-    (in, out)."""
+    ``stack.<name>`` (and the MoE family's ``prefix.<name>``) of shape
+    (L, ...) becomes ``stack.<i>.<name>`` for i < L.  ``shared_blocks``
+    keep their list order; weights stay (in, out).  Every leaf keeps its
+    dtype: the model's is the one leaf dtype other than float32, and the
+    leaves the reference keeps in float32 in any model (MoE's ``router``,
+    Mamba2's ``A_log`` and ``D``) are made float32 by the port's modules
+    too, which ``load_state_dict`` would otherwise cast into."""
     from .core.agent import resolve_device
     from .models.transformer import LM
     device = resolve_device(device)
@@ -88,7 +92,7 @@ def lm_params_from_jax(tree, cfg, *, device=None):
     state: Dict[str, torch.Tensor] = {}
     for name, a in flat.items():
         head, _, rest = name.partition(".")
-        if head == "stack":
+        if head in ("stack", "prefix"):
             for i in range(a.shape[0]):
                 state[f"{head}.{i}.{rest}"] = _tensor(a[i])
         else:

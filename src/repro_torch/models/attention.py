@@ -12,10 +12,12 @@ Path selection, as in the reference (``attention_apply``):
   1024 keys, as a Python loop.  Both keep the reference's head order:
   query head h reads KV head h // (H // KV).
 
-The one-token decode path (``decode_attention_apply``) waits for the
-decode item of the roadmap.
+The one-token decode (``decode_attention_apply``) is the reference's
+plain masked softmax over the whole cache, with no kernel.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 from torch import nn
@@ -142,3 +144,30 @@ def attention_apply(params: Attention, x, positions, *, n_heads, n_kv_heads,
                                    causal=causal)
     out = out.reshape(B, S, n_heads * head_dim)
     return shard(tp_row_matmul(out, params.wo), "batch", "act_seq", None)
+
+
+def decode_attention_apply(params: Attention, x, cache_k, cache_v, pos: int,
+                           *, n_heads, n_kv_heads, head_dim,
+                           rope_theta=10_000.0, rope_fraction=1.0
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """One-token decode at ``pos`` (a Python int, the current length).
+    x (B, 1, D); cache_k and cache_v (B, Smax, KV, dh) take the token's k
+    and v at ``pos`` in place (the reference returns updated copies).
+    Returns (out (B, 1, D), cache_k, cache_v)."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim,
+                           positions, rope_theta, rope_fraction)
+    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+    qg = _group_heads(q, n_kv_heads)                        # (B,1,KV,G,dh)
+    scale = head_dim ** -0.5
+    s = torch.einsum("bskgd,btkd->bkgst", qg,
+                     cache_k.to(qg.dtype)).float() * scale
+    tpos = torch.arange(cache_k.shape[1], device=x.device)
+    s = torch.where(tpos <= pos, s, NEG_INF)
+    w = torch.softmax(s, dim=-1).to(qg.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", w, cache_v.to(qg.dtype))
+    out = out.reshape(B, 1, n_heads * head_dim) @ params.wo
+    return out, cache_k, cache_v

@@ -6,9 +6,13 @@ SSD core runs on the ``"kernel"`` backend through B8
 (``kernels.ssd.ssd``: the CUDA kernel on the card, its plain version on
 the CPU), which reads B and C by group, and on the ``"torch"`` backend
 through ``_ssd_chunked``, the reference's vectorised chunked algorithm.
-The one-token recurrent decode waits for the decode item of the roadmap.
+The one-token decode (``mamba2_decode_apply``) is the reference's
+recurrent update with no kernel: the conv over a window of the last
+``conv_width`` inputs, the float32 state, the ``D`` skip, gate and norm.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -164,3 +168,56 @@ def mamba2_apply(params: Mamba2, u: torch.Tensor, cfg: SSMConfig, *,
     y = y * F.silu(z)
     y = rmsnorm(params.norm, y)
     return shard(y @ params.out_proj, "batch", "act_seq", None)
+
+
+def mamba2_decode_init_cache(batch: int, d_model: int, cfg: SSMConfig, dtype,
+                             *, device=None) -> dict:
+    """Zeros: ``state`` (B, H, P, N) float32 and ``conv`` (B, W - 1, C), the
+    last W - 1 inputs of the conv."""
+    d_in = cfg.expand * d_model
+    H = d_in // cfg.head_dim
+    gn = cfg.n_groups * cfg.d_state
+    return {
+        "state": torch.zeros(batch, H, cfg.head_dim, cfg.d_state,
+                             dtype=torch.float32, device=device),
+        "conv": torch.zeros(batch, cfg.conv_width - 1, d_in + 2 * gn,
+                            dtype=dtype, device=device),
+    }
+
+
+def mamba2_decode_apply(params: Mamba2, u: torch.Tensor, cache: dict,
+                        cfg: SSMConfig) -> Tuple[torch.Tensor, dict]:
+    """One-token recurrent update.  u (B, 1, D); ``cache`` {``state``,
+    ``conv``} is updated in place (the reference returns a new one).
+    Returns (out (B, 1, D), cache)."""
+    B, _, D = u.shape
+    d_in = cfg.expand * D
+    H = d_in // cfg.head_dim
+    gn = cfg.n_groups * cfg.d_state
+    z = u @ params.w_z
+    xBC_t = torch.cat([u @ params.w_x, u @ params.w_B, u @ params.w_C],
+                      dim=-1)
+    window = torch.cat([cache["conv"], xBC_t], dim=1)       # (B, W, C)
+    conv_out = (window * params.conv[None]).sum(dim=1, keepdim=True)
+    xBC = F.silu(conv_out)
+    x = xBC[..., :d_in].reshape(B, H, cfg.head_dim)
+    B_ = xBC[..., d_in: d_in + gn].reshape(B, cfg.n_groups, cfg.d_state)
+    C_ = xBC[..., d_in + gn:].reshape(B, cfg.n_groups, cfg.d_state)
+    # Each group's B and C for its H / G heads (a repeat without the
+    # host: ``repeat_interleave`` may read its output size back).
+    shape = (B, cfg.n_groups, H // cfg.n_groups, cfg.d_state)
+    Bh = B_[:, :, None].expand(shape).reshape(B, H, cfg.d_state)
+    Ch = C_[:, :, None].expand(shape).reshape(B, H, cfg.d_state)
+    dt = F.softplus((u[:, 0] @ params.w_dt).float()
+                    + params.dt_bias.float())
+    A = -torch.exp(params.A_log)
+    a = torch.exp(dt * A)                                   # (B, H)
+    state = cache["state"] * a[..., None, None] + torch.einsum(
+        "bh,bhn,bhp->bhpn", dt, Bh.float(), x.float())
+    y = torch.einsum("bhpn,bhn->bhp", state, Ch.float())
+    y = y + params.D[None, :, None] * x.float()
+    y = y.reshape(B, 1, d_in).to(u.dtype) * F.silu(z)
+    y = rmsnorm(params.norm, y)
+    cache["state"].copy_(state)
+    cache["conv"].copy_(window[:, 1:])
+    return y @ params.out_proj, cache

@@ -1,0 +1,144 @@
+"""Multi-head Latent Attention of DeepSeek V2/V3 (the JAX package's
+``models/mla.py``).
+
+Prefill runs the decompressed form: per-head keys and values come out of
+the compressed latent ``c`` through ``w_uk`` and ``w_uv``, and attention
+takes the path ``attention_apply`` takes (``dense_attention`` up to
+``dense_threshold``; beyond it B7 on the ``"kernel"`` backend, the
+reference's ``flash_attention_scan`` on the ``"torch"`` backend).  B7 takes
+one head dim for q, k and v, and MLA's v (``v_head_dim``, 128) is narrower
+than its q and k (nope + rope, 192): v is zero-padded to q's width for the
+call and the output sliced back, which leaves the softmax, and so the
+scale ``(nope + rope) ** -0.5`` of both reference paths, unchanged.
+
+Decode runs the absorbed form against the compressed cache (rank
+``kv_lora_rank`` latent plus the shared rope key per token): ``w_uk`` is
+folded into the query and ``w_uv`` applied to the attended latent, so the
+cache holds ``kv_lora_rank + qk_rope_head_dim`` numbers a token whatever
+the head count.  RoPE rotates the rope dims at theta = 10,000, hard-coded
+as in the reference.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.base import MLAConfig
+from ..kernels.flash_attention import flash_attention
+from ..nn.backend import resolve_backend
+from .attention import NEG_INF, dense_attention, flash_attention_scan
+from .layers import RMSNorm, _init_dense, apply_rope, empty_param, rmsnorm
+
+ROPE_THETA = 10_000.0
+
+
+class MLA(nn.Module):
+    """MLA's parameters with the reference's names; weights (in, out)."""
+
+    def __init__(self, d_model: int, n_heads: int, mla: MLAConfig, dtype,
+                 device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        qk_head = mla.qk_nope_head_dim + mla.qk_rope_head_dim
+        if mla.q_lora_rank:
+            self.w_dq = empty_param(d_model, mla.q_lora_rank, **kw)
+            self.q_norm = RMSNorm(mla.q_lora_rank, dtype, device)
+            self.w_uq = empty_param(mla.q_lora_rank, n_heads * qk_head, **kw)
+        else:
+            self.w_uq = empty_param(d_model, n_heads * qk_head, **kw)
+        self.w_dkv = empty_param(d_model,
+                                 mla.kv_lora_rank + mla.qk_rope_head_dim, **kw)
+        self.kv_norm = RMSNorm(mla.kv_lora_rank, dtype, device)
+        self.w_uk = empty_param(mla.kv_lora_rank,
+                                n_heads * mla.qk_nope_head_dim, **kw)
+        self.w_uv = empty_param(mla.kv_lora_rank, n_heads * mla.v_head_dim,
+                                **kw)
+        self.wo = empty_param(n_heads * mla.v_head_dim, d_model, **kw)
+
+    def reset_parameters(self, generator=None) -> None:
+        """Dense weights normal / sqrt(in) (the norms reset themselves)."""
+        for name in ("w_dq", "w_uq", "w_dkv", "w_uk", "w_uv", "wo"):
+            if hasattr(self, name):
+                _init_dense(getattr(self, name), generator)
+
+
+def _queries(params: MLA, x, n_heads: int, mla: MLAConfig, positions):
+    B, S, _ = x.shape
+    qk_head = mla.qk_nope_head_dim + mla.qk_rope_head_dim
+    if mla.q_lora_rank:
+        cq = rmsnorm(params.q_norm, x @ params.w_dq)
+        q = (cq @ params.w_uq).reshape(B, S, n_heads, qk_head)
+    else:
+        q = (x @ params.w_uq).reshape(B, S, n_heads, qk_head)
+    q_nope = q[..., : mla.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., mla.qk_nope_head_dim:], positions, ROPE_THETA)
+    return q_nope, q_rope
+
+
+def _compressed_kv(params: MLA, x, mla: MLAConfig, positions):
+    ckv = x @ params.w_dkv
+    c = rmsnorm(params.kv_norm, ckv[..., : mla.kv_lora_rank])
+    k_rope = ckv[..., mla.kv_lora_rank:][:, :, None, :]       # (B, S, 1, rope)
+    k_rope = apply_rope(k_rope, positions, ROPE_THETA)[:, :, 0]
+    return c, k_rope
+
+
+def mla_apply(params: MLA, x, positions, *, n_heads: int, mla: MLAConfig,
+              dense_threshold: int = 2048,
+              backend: str = "kernel") -> torch.Tensor:
+    """Decompressed-form MLA for prefill.  x (B, S, D) -> (B, S, D)."""
+    B, S, _ = x.shape
+    q_nope, q_rope = _queries(params, x, n_heads, mla, positions)
+    c, k_rope = _compressed_kv(params, x, mla, positions)
+    k_nope = (c @ params.w_uk).reshape(B, S, n_heads, mla.qk_nope_head_dim)
+    v = (c @ params.w_uv).reshape(B, S, n_heads, mla.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, n_heads, mla.qk_rope_head_dim)], dim=-1)
+    if S <= dense_threshold:
+        # Grouped layout with KV == heads (MLA decompresses per head).
+        out = dense_attention(q[:, :, :, None, :], k, v, causal=True)
+    elif resolve_backend(backend) == "kernel":
+        pad = q.shape[-1] - mla.v_head_dim
+        out = flash_attention(q, k, F.pad(v, (0, pad)),
+                              causal=True)[..., : mla.v_head_dim]
+    else:
+        out = flash_attention_scan(q[:, :, :, None, :], k, v, causal=True)
+    out = out.reshape(B, S, n_heads * mla.v_head_dim)
+    return out @ params.wo
+
+
+def mla_decode_apply(params: MLA, x, cache_c, cache_rope, pos: int, *,
+                     n_heads: int, mla: MLAConfig
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Absorbed-form decode of the token at ``pos`` (a Python int).
+    x (B, 1, D); cache_c (B, Smax, kv_lora) and cache_rope (B, Smax, rope)
+    take the token's latent and rope key at ``pos`` in place (the
+    reference returns updated copies).  Scores q_nope W_uk^T c +
+    q_rope k_rope over positions <= pos.  Returns (out (B, 1, D), cache_c,
+    cache_rope)."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    q_nope, q_rope = _queries(params, x, n_heads, mla, positions)
+    c, k_rope = _compressed_kv(params, x, mla, positions)
+    cache_c[:, pos] = c[:, 0].to(cache_c.dtype)
+    cache_rope[:, pos] = k_rope[:, 0].to(cache_rope.dtype)
+    # Absorb W_uk into the query: (B,1,H,nope) x (lora,H,nope) -> (B,H,lora).
+    w_uk = params.w_uk.reshape(mla.kv_lora_rank, n_heads,
+                               mla.qk_nope_head_dim)
+    q_abs = torch.einsum("bshn,lhn->bhl", q_nope, w_uk)
+    scale = (mla.qk_nope_head_dim + mla.qk_rope_head_dim) ** -0.5
+    s = (torch.einsum("bhl,btl->bht", q_abs, cache_c.to(q_abs.dtype))
+         + torch.einsum("bshr,btr->bht", q_rope,
+                        cache_rope.to(q_rope.dtype)))
+    s = s.float() * scale
+    tpos = torch.arange(cache_c.shape[1], device=x.device)[None, None, :]
+    s = torch.where(tpos <= pos, s, NEG_INF)
+    w = torch.softmax(s, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bht,btl->bhl", w, cache_c.to(x.dtype))
+    w_uv = params.w_uv.reshape(mla.kv_lora_rank, n_heads, mla.v_head_dim)
+    out = torch.einsum("bhl,lhv->bhv", ctx, w_uv).reshape(B, 1, -1)
+    return out @ params.wo, cache_c, cache_rope

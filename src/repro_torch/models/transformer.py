@@ -1,9 +1,11 @@
-"""Config-driven decoder stack of the LM zoo, forward only (the JAX
-package's ``models/transformer.py``).
+"""Config-driven decoder stack of the LM zoo for serving (the JAX
+package's ``models/transformer.py``): the full-sequence forward (prefill)
+and the one-token decode step against a cache.
 
 One generic implementation; blocks compose by ``ModelConfig``:
 
 * dense GQA/MQA -> attention + (GLU or squared-ReLU) FFN;
+* moe (deepseek) -> MLA attention + a dense-FFN prefix, then MoE layers;
 * ssm (mamba2)  -> SSD blocks, attention-free;
 * hybrid (zamba2) -> SSD backbone + shared attention/MLP blocks cycled in;
 * vlm / audio   -> the dense stack with an embeddings input stub (musicgen
@@ -15,10 +17,15 @@ Python loop.  ``backend`` picks the long-sequence kernels: ``"kernel"``
 runs B7 (causal flash attention, past ``dense_threshold``) and B8 (the
 chunked SSD), ``"torch"`` the reference's plain PyTorch counterparts.
 
-Not here yet, each an item of the roadmap's module queue: MLA and MoE
-(the ``moe`` family: ``forward`` raises ``NotImplementedError``), the
-loss with rematerialisation and training, and decode (``decode_step``,
-``init_cache``).
+Decode (``init_cache``, ``decode_step``) runs no kernel, as in the
+reference: attention reads the whole cache with a mask, MLA its
+compressed cache in the absorbed form, Mamba2 its recurrent state.  The
+reference returns a new cache each step (and ``generate`` donates the old
+one); here each step writes its token's slice into the cache in place and
+returns the same tree.
+
+Not here yet, an item of the roadmap's module queue: the loss with
+rematerialisation and training.
 """
 from __future__ import annotations
 
@@ -31,24 +38,16 @@ from ..configs.base import ModelConfig
 from ..distributed.sharding import shard
 from . import attention as attn
 from . import mamba2 as ssd
+from . import mla as mla_mod
+from . import moe as moe_mod
 from .layers import (FFN, Embedding, LMHead, RMSNorm, embedding_lookup,
                      ffn_apply, lm_head_apply, rmsnorm, unembed)
 
-NOT_PORTED = ("MLA and MoE are not ported yet (ROADMAP.md, queue A, "
-              "'MLA and MoE')")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration this slice cannot
-    run (MLA attention or MoE FFNs)."""
-    if cfg.mla is not None or cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED}")
-
-
 # ------------------------------------------------------------------ blocks
 class Block(nn.Module):
-    """One layer: an SSD block (``kind="ssm"``) or attention + FFN
-    (``kind="attn"``), pre-norm, with the reference's parameter names."""
+    """One layer, pre-norm, with the reference's parameter names: an SSD
+    block (``kind="ssm"``), or attention (MLA when the config has it) and
+    then a dense FFN (``kind="attn"``) or MoE (``kind="attn_moe"``)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, dtype, device=None):
         super().__init__()
@@ -57,10 +56,16 @@ class Block(nn.Module):
         if kind == "ssm":
             self.ssm = ssd.Mamba2(D, cfg.ssm, dtype, device)
             return
-        self.attn = attn.Attention(D, cfg.n_heads, cfg.n_kv_heads,
-                                   cfg.resolved_head_dim, dtype, device)
+        if cfg.mla is not None:
+            self.mla = mla_mod.MLA(D, cfg.n_heads, cfg.mla, dtype, device)
+        else:
+            self.attn = attn.Attention(D, cfg.n_heads, cfg.n_kv_heads,
+                                       cfg.resolved_head_dim, dtype, device)
         self.norm2 = RMSNorm(D, dtype, device)
-        self.mlp = FFN(D, cfg.d_ff, cfg.glu, dtype, device)
+        if kind == "attn_moe":
+            self.moe = moe_mod.MoE(D, cfg.moe, cfg.glu, dtype, device)
+        else:
+            self.mlp = FFN(D, cfg.d_ff, cfg.glu, dtype, device)
 
 
 class SharedBlock(nn.Module):
@@ -84,15 +89,25 @@ def _block_apply(params: Block, cfg: ModelConfig, kind: str, x, positions,
             params.ssm, rmsnorm(params.norm1, x, cfg.norm_eps), cfg.ssm,
             backend=backend)
     h = rmsnorm(params.norm1, x, cfg.norm_eps)
-    a = attn.attention_apply(params.attn, h, positions,
-                             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                             head_dim=cfg.resolved_head_dim,
-                             rope_theta=cfg.rope_theta,
-                             rope_fraction=cfg.rope_fraction,
-                             backend=backend)
+    if cfg.mla is not None:
+        a = mla_mod.mla_apply(params.mla, h, positions, n_heads=cfg.n_heads,
+                              mla=cfg.mla, backend=backend)
+    else:
+        a = attn.attention_apply(params.attn, h, positions,
+                                 n_heads=cfg.n_heads,
+                                 n_kv_heads=cfg.n_kv_heads,
+                                 head_dim=cfg.resolved_head_dim,
+                                 rope_theta=cfg.rope_theta,
+                                 rope_fraction=cfg.rope_fraction,
+                                 backend=backend)
     x = x + a
-    h = rmsnorm(params.norm2, x, cfg.norm_eps)
-    return x + ffn_apply(params.mlp, h, cfg.act, cfg.glu)
+    return x + _ffn(params, cfg, kind, rmsnorm(params.norm2, x, cfg.norm_eps))
+
+
+def _ffn(params: Block, cfg: ModelConfig, kind: str, h):
+    if kind == "attn_moe":
+        return moe_mod.moe_apply(params.moe, h, cfg.moe, cfg.act, cfg.glu)
+    return ffn_apply(params.mlp, h, cfg.act, cfg.glu)
 
 
 def _shared_block_apply(params: SharedBlock, cfg: ModelConfig, x, positions,
@@ -122,16 +137,19 @@ def _layer_plan(cfg: ModelConfig) -> Tuple[int, str, int, str]:
 
 class LM(nn.Module):
     """The parameters of one configuration, named as the reference's tree:
-    ``embed``, ``final_norm``, ``stack`` (one module per layer where the
-    reference stacks them), ``shared_blocks`` (hybrid) and ``lm_head``
-    (untied).  Made empty; ``init_params`` fills it."""
+    ``embed``, ``final_norm``, ``prefix`` (the MoE family's leading dense
+    layers) and ``stack`` (one module per layer where the reference stacks
+    them), ``shared_blocks`` (hybrid) and ``lm_head`` (untied).  Made
+    empty; ``init_params`` fills it."""
 
     def __init__(self, cfg: ModelConfig, dtype, device=None):
         super().__init__()
-        check_supported(cfg)
-        _, _, main_n, main_kind = _layer_plan(cfg)
+        prefix_n, prefix_kind, main_n, main_kind = _layer_plan(cfg)
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, dtype, device)
         self.final_norm = RMSNorm(cfg.d_model, dtype, device)
+        if prefix_n:
+            self.prefix = nn.ModuleList(Block(cfg, prefix_kind, dtype, device)
+                                        for _ in range(prefix_n))
         self.stack = nn.ModuleList(Block(cfg, main_kind, dtype, device)
                                    for _ in range(main_n))
         if cfg.hybrid is not None:
@@ -169,23 +187,33 @@ def _run_stack(layers, cfg: ModelConfig, kind: str, x, positions,
     return x
 
 
-def _hybrid_run(params: LM, cfg: ModelConfig, x, positions, backend: str):
-    """SSD backbone with a shared attention block after every
-    ``attn_period`` layers (and after a last, shorter run only if it is
-    full), cycling through the shared blocks."""
-    h = cfg.hybrid
-    L = cfg.n_layers
-    period = h.attn_period
-    i = seg = 0
-    while i < L:
+def _hybrid_plan(cfg: ModelConfig):
+    """The hybrid's schedule, shared by the forward and the decode step: an
+    SSD backbone with a shared attention block after every ``attn_period``
+    layers (and after a last, shorter run only if it is full), cycling
+    through the shared blocks.  Yields (layers, seg, block) for each run of
+    SSM layers: ``seg`` numbers the shared-block use that follows the run
+    (its slot in the decode cache) and ``block`` the shared block it uses,
+    both None where no shared block follows."""
+    L, period = cfg.n_layers, cfg.hybrid.attn_period
+    seg = 0
+    for i in range(0, L, period):
         n = min(period, L - i)
-        x = _run_stack(params.stack[i:i + n], cfg, "ssm", x, positions,
-                       backend)
-        i += n
-        if i < L or n == period:
-            blk = params.shared_blocks[seg % h.n_shared_blocks]
-            x = _shared_block_apply(blk, cfg, x, positions, backend)
+        if i + n < L or n == period:
+            yield range(i, i + n), seg, seg % cfg.hybrid.n_shared_blocks
             seg += 1
+        else:
+            yield range(i, i + n), None, None
+
+
+def _hybrid_run(params: LM, cfg: ModelConfig, x, positions, backend: str):
+    """The hybrid's backbone over the whole sequence (``_hybrid_plan``)."""
+    for layers, seg, block in _hybrid_plan(cfg):
+        x = _run_stack(params.stack[layers.start:layers.stop], cfg, "ssm", x,
+                       positions, backend)
+        if seg is not None:
+            x = _shared_block_apply(params.shared_blocks[block], cfg, x,
+                                    positions, backend)
     return x
 
 
@@ -215,14 +243,133 @@ def _logits(params: LM, cfg: ModelConfig, x):
 def forward(params: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             backend: str = "kernel") -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, V[, K]), float32."""
-    check_supported(cfg)
     x = _inputs_to_h(params, cfg, batch)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    _, _, _, main_kind = _layer_plan(cfg)
+    prefix_n, prefix_kind, _, main_kind = _layer_plan(cfg)
+    if prefix_n:
+        x = _run_stack(params.prefix, cfg, prefix_kind, x, positions,
+                       backend)
     if cfg.family == "hybrid":
         x = _hybrid_run(params, cfg, x, positions, backend)
     else:
         x = _run_stack(params.stack, cfg, main_kind, x, positions, backend)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     return _logits(params, cfg, x)
+
+
+# ------------------------------------------------------------------ decode
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, *, device=None) -> dict:
+    """The decode cache, zeros, in the reference's tree: ``stack`` (and
+    ``prefix``) of {``k``, ``v``} (B, max_len, KV, dh), MLA's {``c``,
+    ``rope``} (B, max_len, rank) or Mamba2's {``state`` (float32),
+    ``conv``}, each stacked along a leading layer dim; the hybrid's
+    ``shared`` {``k``, ``v``} has one slot per use of a shared block,
+    ceil(L / attn_period) of them.  On the card unless ``device`` says
+    otherwise."""
+    from ..core.agent import resolve_device
+    device = resolve_device(device)
+    prefix_n, _, main_n, _ = _layer_plan(cfg)
+    D = cfg.d_model
+    kw = dict(dtype=dtype, device=device)
+
+    def attn_cache(n_layers, kv_heads, head_dim):
+        shape = (n_layers, batch, max_len, kv_heads, head_dim)
+        return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+
+    def mla_cache(n_layers):
+        m = cfg.mla
+        return {"c": torch.zeros(n_layers, batch, max_len, m.kv_lora_rank,
+                                 **kw),
+                "rope": torch.zeros(n_layers, batch, max_len,
+                                    m.qk_rope_head_dim, **kw)}
+
+    cache: Dict[str, dict] = {}
+    if cfg.family in ("ssm", "hybrid"):
+        one = ssd.mamba2_decode_init_cache(batch, D, cfg.ssm, dtype,
+                                           device=device)
+        cache["stack"] = {k: t[None].repeat(main_n, *(1,) * t.dim())
+                          for k, t in one.items()}
+        if cfg.hybrid is not None:
+            h = cfg.hybrid
+            n_inv = -(-cfg.n_layers // h.attn_period)
+            cache["shared"] = attn_cache(n_inv, h.shared_n_kv_heads,
+                                         D // h.shared_n_heads)
+        return cache
+    if cfg.mla is not None:
+        cache["stack"] = mla_cache(main_n)
+        if prefix_n:
+            cache["prefix"] = mla_cache(prefix_n)
+        return cache
+    cache["stack"] = attn_cache(main_n, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return cache
+
+
+def _layer(tree: dict, i: int) -> dict:
+    """Layer i's cache leaves: views, so writes land in ``tree``."""
+    return {k: t[i] for k, t in tree.items()}
+
+
+def _decode_block(params: Block, cfg: ModelConfig, kind: str, x,
+                  layer_cache: dict, pos: int):
+    h = rmsnorm(params.norm1, x, cfg.norm_eps)
+    if kind == "ssm":
+        out, _ = ssd.mamba2_decode_apply(params.ssm, h, layer_cache, cfg.ssm)
+        return x + out
+    if cfg.mla is not None:
+        a, _, _ = mla_mod.mla_decode_apply(
+            params.mla, h, layer_cache["c"], layer_cache["rope"], pos,
+            n_heads=cfg.n_heads, mla=cfg.mla)
+    else:
+        a, _, _ = attn.decode_attention_apply(
+            params.attn, h, layer_cache["k"], layer_cache["v"], pos,
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+            rope_fraction=cfg.rope_fraction)
+    x = x + a
+    return x + _ffn(params, cfg, kind, rmsnorm(params.norm2, x, cfg.norm_eps))
+
+
+def _decode_shared_block(params: SharedBlock, cfg: ModelConfig, x, kcache,
+                         vcache, pos: int):
+    h = rmsnorm(params.norm1, x, cfg.norm_eps)
+    hcfg = cfg.hybrid
+    a, _, _ = attn.decode_attention_apply(
+        params.attn, h, kcache, vcache, pos, n_heads=hcfg.shared_n_heads,
+        n_kv_heads=hcfg.shared_n_kv_heads,
+        head_dim=cfg.d_model // hcfg.shared_n_heads,
+        rope_theta=cfg.rope_theta)
+    x = x + a
+    h = rmsnorm(params.norm2, x, cfg.norm_eps)
+    return x + ffn_apply(params.shared, h, cfg.act, cfg.glu)
+
+
+@torch.no_grad()
+def decode_step(params: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                cache: dict, pos: int) -> Tuple[torch.Tensor, dict]:
+    """One-token decode.  ``batch``: tokens (B, 1)[, K] or embeddings
+    (B, 1, D); ``pos`` the current cache length (the new token's index), a
+    Python int, so no step waits on the card to read it.  Writes the
+    token's keys, latents or states into ``cache`` in place and returns
+    (logits (B, 1, V[, K]) float32, ``cache``)."""
+    x = _inputs_to_h(params, cfg, batch)
+    prefix_n, prefix_kind, _, main_kind = _layer_plan(cfg)
+    for i in range(prefix_n):
+        x = _decode_block(params.prefix[i], cfg, prefix_kind, x,
+                          _layer(cache["prefix"], i), pos)
+    if cfg.family == "hybrid":
+        for layers, seg, block in _hybrid_plan(cfg):
+            for j in layers:
+                x = _decode_block(params.stack[j], cfg, "ssm", x,
+                                  _layer(cache["stack"], j), pos)
+            if seg is not None:
+                x = _decode_shared_block(params.shared_blocks[block], cfg, x,
+                                         cache["shared"]["k"][seg],
+                                         cache["shared"]["v"][seg], pos)
+    else:
+        for i, p in enumerate(params.stack):
+            x = _decode_block(p, cfg, main_kind, x, _layer(cache["stack"], i),
+                              pos)
+    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
+    return _logits(params, cfg, x), cache

@@ -91,7 +91,10 @@ def test_scan_covers_every_slice():
                  "repro_torch.models.attention",
                  "repro_torch.models.mamba2",
                  "repro_torch.models.transformer",
+                 "repro_torch.models.mla",
+                 "repro_torch.models.moe",
                  "repro_torch.launch.steps",
+                 "repro_torch.launch.serve",
                  "repro_torch.kernels.ssd.ops",
                  "repro_torch.kernels.ssd.kernel",
                  "repro_torch.kernels.ssd.ref"):

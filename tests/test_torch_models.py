@@ -3,7 +3,8 @@
 layers, attention on both sides of the dense threshold, Mamba2 at a
 ragged length, whole-model logits of the smoke configs (dense, vlm/audio,
 ssm, hybrid) on both backends, a hybrid forward past the threshold,
-batches, the prefill step, and the configurations not ported yet.
+batches and the prefill step (MLA, MoE and decode: test_torch_moe.py and
+test_torch_lm_decode.py).
 Inputs come from numpy with a seed; weights from the reference, converted.
 float32 throughout; each tolerance is stated where it is used."""
 import functools
@@ -352,17 +353,6 @@ def test_lm_params_from_jax_runs_on_the_card_unless_told_otherwise():
         lm_params_from_jax(tree, cfg)
     lm = lm_params_from_jax(tree, cfg, device="cpu")
     assert {p.device.type for p in lm.parameters()} == {"cpu"}
-
-
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
-                                  "deepseek-v3-671b"])
-def test_mla_and_moe_are_not_ported_yet(arch):
-    cfg = configs.get_config(arch)
-    for call in (lambda: transformer.forward(None, cfg, {}),
-                 lambda: transformer.init_params(cfg, device="cpu"),
-                 lambda: make_prefill_step(cfg)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
 
 
 def test_configs_are_the_references():
