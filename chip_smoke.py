@@ -207,7 +207,28 @@ prints its wall seconds:
    draws in float32 at full depth: the prefill step on both backends (27
    B7 launches, all ``flash_fwd``; logits within 1e-3 as 15),
    ``generate`` held within 2e-3, and the bfloat16 run's forward and
-   decode logits against the float32 forward of its tokens.
+   decode logits against the float32 forward of its tokens;
+24. LM training (run after 23; float32, TF32 off, the "torch" backend:
+   no kernel launches, so no entry in the kernels line): (a) gemma-2b at
+   full width cut to 2 of its 18 layers, the same weights on the card
+   and on the CPU, one ``make_train_step`` (AdamW, lr 1e-3, weight decay
+   0.1, 2 microbatches) at B = 2, S = 128: the loss within rtol 1e-5,
+   the norm within 1e-4, every parameter and moment as
+   ``hold_train_step`` says; (b) gemma-2b whole (2.51 B parameters):
+   a 4-step ``train_loop`` at B = 1, S = 4096 with finite losses, then
+   4 steps at a constant lr of 1e-4 on one batch, the loss falling at
+   each, step wall and device time, tokens/s, busy share, peak memory
+   and the last step profiled by group (matmuls, attention scan,
+   cross-entropy with the logits, AdamW, remat recompute: the port's
+   ``mrsch.lm.*`` profiler ranges, each asserted present); (c) the cut
+   model's ``train_loop`` with a factored state and a bfloat16 first
+   moment, stopped at step 2 and resumed to 4 from its checkpoint in a
+   temporary directory, equal to the uninterrupted run (rtol 1e-6); (d)
+   deepseek-v2-lite-16b (3 layers) and zamba2-7b (6 layers, one use of a
+   shared block) at full width, B = 1, S = 4096: finite losses and
+   gradients, each expert's gradient nonzero exactly when a kept choice
+   routed it a token, 2 train steps; (e) the kernel backend's forward
+   with grad on raises B7's and B8's ``RuntimeError``.
 
 The line before the last is a JSON summary of the kernels (B1's times
 are the 13 DFP layers' at M = 64; B1, B2, B3, B5 and B6 count the
@@ -393,6 +414,39 @@ MOE_ARCH = "deepseek-v2-lite-16b"
 MOE_PREFILL = {"flash_attention": 27}
 MOE_F32_DEPTH = 4
 MOE_PARAMS = 15_706_484_224
+# LM training (phase 24): gemma-2b at full width, float32 (TF32 off), on
+# the "torch" backend (B7 and B8 are forward-only).  (a) cut to 2 of its 18
+# layers, one step with 2 microbatches of B = 2, S = 128 on the card and
+# on the CPU; (b) whole at B = 1, S = 4096, a 4-step train_loop and then
+# 4 steps at a constant lr on one batch, the last one profiled; (c) the
+# cut model's train_loop resumed on the card; (d) the other families at
+# full width, depth cut, at B = 1, S = 4096; (e) B7 and B8 refuse a graph.
+TRAIN_ARCH, TRAIN_CUT = "gemma-2b", 2
+TRAIN_PARITY_B, TRAIN_PARITY_S = 2, 128
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 1, 4096, 4
+TRAIN_FALL_LR = 1e-4
+TRAIN_FAMILIES = (("deepseek-v2-lite-16b", 3), ("zamba2-7b", 6))
+# Card against CPU, one step: the loss and the norm (float32 sums in
+# another order); every moment within 1e-3 (v, squared: 2e-3) relative
+# and 1e-3 of its leaf's largest; the parameters within rtol 1e-4, atol
+# 1e-6, but where |g| is below 1e-3 of its leaf's largest (the first
+# step's u = m / (sqrt(v) + eps) there is sensitive to g's last digits),
+# held to the bound of one step, |new - old| <= 2 lr, and to the CPU's new
+# value within TRAIN_SMALL_G_TOL lr: an update of the wrong sign is off by
+# up to 2 lr |u|, and |u| is about 1 where |g| is well above eps.
+TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL = 1e-5, 1e-4
+TRAIN_RESUME_RTOL = 1e-6
+TRAIN_SMALL_G_TOL = 1 / 8
+# The training step's profiler ranges (the port's ``mrsch.lm.*``: opened
+# by ``make_train_step``, ``transformer.loss``, each block and the
+# attention core) and the group each names.  Backward kernels take their
+# forward op's range (by autograd sequence number); block forwards run
+# inside the backward are the remat recompute.
+TRAIN_SCOPES = {"mrsch.lm.adamw": "AdamW update",
+                "mrsch.lm.logits_ce": "cross-entropy with the logits",
+                "mrsch.lm.attention": "attention scan"}
+TRAIN_BLOCK_SCOPE = "mrsch.lm.block"
+MATMUL_KERNELS = ("gemm", "nvjet", "cutlass", "xmma", "sm90_")
 PEAK_BF16_FLOP_PER_S = 989e12
 # TF32 on the tensor cores (dense): B7's float32 kernel does each product as
 # three TF32 products (3xTF32), so its least time is 3 flops / this rate.
@@ -3858,6 +3912,464 @@ def phase_lm_moe() -> dict:
     return out
 
 
+def tree_items(tree) -> list:
+    """(dotted path, leaf) of a tree of nested dicts and lists."""
+    from repro_torch.convert import _flatten
+    out = {}
+    _flatten(tree, "", out, leaf=lambda t: t)
+    return list(out.items())
+
+
+def hold_train_step(params, state, want_params, want_state, before,
+                    lr: float, tag: str) -> dict:
+    """The card's parameters and AdamW state after one step against the
+    CPU's, at the tolerances above ``TRAIN_LOSS_RTOL``, compared on the
+    card (``before``: the parameters' tree before the step, there too);
+    |g| is read from the CPU's first moment (0.1 g times the clip scale
+    after one step).  Returns the largest relative errors by kind."""
+    from repro_torch.convert import lm_params_to_tree
+    got = dict(tree_items(state))
+    want = dict(tree_items(want_state))
+    if got.keys() != want.keys() or int(got["step"]) != int(want["step"]):
+        raise AssertionError(f"[{tag}] the states' trees or steps differ")
+    worst = {}
+    for path, w in want.items():
+        if path == "step":
+            continue
+        kind = path.rsplit(".", 1)[1]
+        g, w = got[path].float(), w.to("cuda", torch.float32)
+        atol = 1e-3 * float(w.abs().max())
+        rtol = 2e-3 if kind in ("v", "vr", "vc") else 1e-3
+        err = (g - w).abs()
+        if not bool((err <= atol + rtol * w.abs()).all()):
+            raise AssertionError(f"[{tag}] {path}: max abs err "
+                                 f"{float(err.max())} (atol {atol})")
+        worst[kind] = max(worst.get(kind, 0.0),
+                          float((err / (atol + w.abs())).max()))
+    moved = dict(tree_items(lm_params_to_tree(params)))
+    n_small, small_err = 0, 0.0
+    for path, w in tree_items(lm_params_to_tree(want_params)):
+        g, w = moved[path].float(), w.to("cuda", torch.float32)
+        m = want[f"leaves.{path}.m"].to("cuda").abs()
+        small = m < 1e-3 * m.max()
+        n_small += int(small.sum())
+        err = (g - w).abs()
+        ok = torch.where(small, err <= TRAIN_SMALL_G_TOL * lr,
+                         err <= 1e-6 + 1e-4 * w.abs())
+        if not bool(ok.all()) or not bool(
+                ((g - before[path]).abs()[small] <= 2 * lr).all()):
+            raise AssertionError(f"[{tag}] parameter {path}: max abs err "
+                                 f"{float(err[~small].max())}, where |g| "
+                                 f"is small {float(err[small].max())}")
+        worst["params"] = max(worst.get("params", 0.0),
+                              float(err[~small].max()))
+        if small.any():
+            small_err = max(small_err, float(err[small].max()))
+    worst["small_g_elements"] = n_small
+    worst["small_g_params"] = small_err
+    return worst
+
+
+def lm_train_parity() -> dict:
+    """(a) gemma-2b at full width cut to 2 layers, the same float32 weights
+    on the card and on the CPU: one ``make_train_step`` step (AdamW, lr
+    1e-3, weight decay 0.1, 2 microbatches) at B = 2, S = 128, the card
+    against the CPU."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.convert import lm_params_to_tree
+    from repro_torch.data import make_batch
+    from repro_torch.launch import make_train_step
+    from repro_torch.models import LM, init_params
+    from repro_torch.optim import OptConfig, opt_init
+    cfg = replace(get_config(TRAIN_ARCH), n_layers=TRAIN_CUT)
+    opt = OptConfig(lr=1e-3, weight_decay=0.1)
+    card = init_params(cfg, generator=torch.Generator("cuda").manual_seed(2),
+                       device="cuda", dtype=torch.float32)
+    cpu = LM(cfg, torch.float32, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    before = {k: v.clone() for k, v in tree_items(lm_params_to_tree(card))}
+    batch = make_batch(cfg, InputShape("train", TRAIN_PARITY_S,
+                                       TRAIN_PARITY_B, "train"), device="cpu")
+    step = make_train_step(cfg, opt, microbatches=2)
+    out = {}
+    for name, lm in (("card", card), ("cpu", cpu)):
+        device = next(lm.parameters()).device
+        state = opt_init(lm, opt)
+        t0 = time.perf_counter()
+        _, state, m = step(lm, state, {k: v.to(device)
+                                       for k, v in batch.items()})
+        out[name] = (float(m["loss"]), float(m["grad_norm"]), state,
+                     time.perf_counter() - t0)
+    (loss, gnorm, state, dt_card), (want_loss, want_norm, want_state,
+                                    dt_cpu) = out["card"], out["cpu"]
+    worst = hold_train_step(card, state, cpu, want_state, before, opt.lr,
+                            "lm train parity")
+    log(f"[lm train parity] {cfg.name} at full width, {cfg.n_layers} of 18 "
+        f"layers ({sum(p.numel() for p in cpu.parameters())} parameters), "
+        f"B={TRAIN_PARITY_B} S={TRAIN_PARITY_S}, 2 microbatches, one step: "
+        f"loss card {loss!r} cpu {want_loss!r} (rel err "
+        f"{abs(loss / want_loss - 1):.3e}, tol {TRAIN_LOSS_RTOL}); grad "
+        f"norm card {gnorm!r} cpu {want_norm!r} (rel err "
+        f"{abs(gnorm / want_norm - 1):.3e}, tol {TRAIN_NORM_RTOL}); worst "
+        f"state and parameter errors {worst} (small_g_params: the largest "
+        f"|card - cpu| of a new parameter where |g| is small, limit "
+        f"{TRAIN_SMALL_G_TOL * opt.lr!r}); step {dt_card:.2f} s on the "
+        f"card, {dt_cpu:.2f} s on the CPU")
+    if abs(loss / want_loss - 1) > TRAIN_LOSS_RTOL \
+            or abs(gnorm / want_norm - 1) > TRAIN_NORM_RTOL:
+        raise AssertionError("[lm train parity] loss or norm off")
+    return {"loss": loss, "grad_norm": gnorm, **worst}
+
+
+def train_breakdown(prof) -> dict:
+    """Device ms of a profiled training step by group: AdamW (kernels
+    launched inside its range), the remat recompute (block forwards run
+    inside the backward), cross-entropy with the logits and the attention
+    scan (forward kernels inside their ranges, backward kernels whose
+    autograd node's forward op was), then the rest by kernel name
+    (matmul, other); plus the forward/backward/AdamW split and the
+    matmuls of every group."""
+    from torch.autograd import DeviceType
+    bwd_prefix = "autograd::engine::evaluate_function"
+    fwd_scope, launched = {}, []
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        names, bwd, p = [], None, e.cpu_parent
+        while p is not None:
+            names.append(p.name)
+            if bwd is None and p.name.startswith(bwd_prefix):
+                bwd = p
+            p = p.cpu_parent
+        scope = next((n for n in names if n in TRAIN_SCOPES), None)
+        if bwd is None and e.sequence_nr >= 0 and scope is not None:
+            fwd_scope.setdefault(e.sequence_nr, scope)
+        if e.kernels:
+            launched.append((e, names, bwd, scope))
+    groups, phases = {}, {"forward": 0.0, "backward": 0.0, "AdamW": 0.0}
+    matmul_all = 0.0
+    for e, names, bwd, scope in launched:
+        if "mrsch.lm.adamw" in names:
+            group, phase = TRAIN_SCOPES["mrsch.lm.adamw"], "AdamW"
+        elif bwd is not None and TRAIN_BLOCK_SCOPE in names:
+            group, phase = "remat recompute", "backward"
+        elif bwd is not None:
+            group = TRAIN_SCOPES.get(fwd_scope.get(bwd.sequence_nr))
+            phase = "backward"
+        else:
+            group, phase = TRAIN_SCOPES.get(scope), "forward"
+        for k in e.kernels:
+            if k.name in TRAIN_SCOPES or k.name == TRAIN_BLOCK_SCOPE:
+                continue                # a range's device-side copy
+            ms = k.duration / 1e3
+            is_mm = any(key in k.name.lower() for key in MATMUL_KERNELS)
+            name = group or ("matmul" if is_mm else "other")
+            groups[name] = groups.get(name, 0.0) + ms
+            phases[phase] += ms
+            matmul_all += ms if is_mm else 0.0
+    return {"groups": groups, "phases": phases, "matmul_all": matmul_all}
+
+
+def lm_train_whole() -> dict:
+    """(b) gemma-2b whole: a 4-step ``train_loop`` at B = 1, S = 4096
+    (every loss finite), then 4 ``make_train_step`` steps at a constant lr
+    of 1e-4 on one batch (the loss falls at every step), the first three
+    timed, the last profiled and broken down by group; peak memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch import make_train_step
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import init_params
+    from repro_torch.optim import OptConfig, opt_init
+    cfg = get_config(TRAIN_ARCH)
+    shape = InputShape("train", TRAIN_S, TRAIN_B, "train")
+    card = gpu_name_and_power_limit()
+    t0 = time.perf_counter()
+    run = train_loop(cfg, shape, steps=TRAIN_STEPS, ckpt_dir=None,
+                     log_every=1)
+    loop_s = time.perf_counter() - t0
+    log(f"[lm train] train_loop of {cfg.name} ({cfg.n_layers} layers), "
+        f"B={TRAIN_B} "
+        f"S={TRAIN_S}, {run.steps} steps (cosine, warmup 1, peak 1e-3): "
+        f"losses {run.losses}, {loop_s:.1f} s with the parameters' "
+        f"initialisation; card {card}")
+    if run.steps != TRAIN_STEPS or len(run.losses) != TRAIN_STEPS \
+            or not all(math.isfinite(x) for x in run.losses):
+        raise AssertionError(f"[lm train] train_loop: {run}")
+    free_cuda()
+    params = init_params(cfg, generator=torch.Generator("cuda").manual_seed(1),
+                         device="cuda", dtype=torch.float32)
+    n_params = sum(p.numel() for p in params.parameters())
+    opt = OptConfig(lr=TRAIN_FALL_LR)
+    state = opt_init(params, opt)
+    step = make_train_step(cfg, opt)
+    batch = make_batch(cfg, shape, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, devs = [], [], []
+    prof = None
+    for i in range(TRAIN_STEPS):
+        profiled = i == TRAIN_STEPS - 1
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        e0.record()
+        if profiled:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                params, state, m = step(params, state, batch)
+                torch.cuda.synchronize()
+        else:
+            params, state, m = step(params, state, batch)
+        e1.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+        devs.append(e0.elapsed_time(e1))
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    from torch.autograd import DeviceType
+    ranges = [e.name for e in prof.events()       # not the device copies
+              if e.device_type == DeviceType.CPU
+              and e.name.startswith("mrsch.lm.")]
+    opened = {n: ranges.count(n) for n in (*TRAIN_SCOPES, TRAIN_BLOCK_SCOPE)}
+    log(f"[lm train] the profiled step's ranges: {opened}")
+    if not all(opened.values()) \
+            or opened[TRAIN_BLOCK_SCOPE] != 2 * cfg.n_layers:
+        raise AssertionError(f"[lm train] a range of the step is missing "
+                             f"from the profile (each block's twice: "
+                             f"forward and recompute): {opened}")
+    wall, dev = statistics.median(walls[:-1]), statistics.median(devs[:-1])
+    kernels_ms = sum(e.self_device_time_total
+                     for e in device_events(prof)) / 1e3
+    split = train_breakdown(prof)
+    attributed = sum(split["groups"].values())
+    log(f"[lm train] {cfg.name} whole: {n_params} parameters "
+        f"({4 * n_params / 1e9:.2f} GB float32; with gradients, m and v "
+        f"{16 * n_params / 1e9:.2f} GB), B={TRAIN_B} S={TRAIN_S}, remat on, "
+        f"lr {TRAIN_FALL_LR} constant, one batch: losses {losses}; step wall "
+        f"{wall:.2f} ms (median of steps 0-{TRAIN_STEPS - 2}: "
+        f"{', '.join(f'{w:.2f}' for w in walls[:-1])}), device "
+        f"{dev:.2f} ms (CUDA events around the step), "
+        f"{TRAIN_B * TRAIN_S / wall * 1e3:.1f} tokens/s; profiled step "
+        f"{walls[-1]:.2f} ms wall, its kernels {kernels_ms:.2f} ms, busy "
+        f"share {kernels_ms / wall:.4f} of the unprofiled step's wall; peak "
+        f"memory {peak} bytes ({peak / 2**30:.2f} GiB, "
+        f"torch.cuda.max_memory_allocated); card {card}")
+    log(f"[lm train]   by phase: " + ", ".join(
+        f"{k} {v:.3f} ms ({v / kernels_ms:.3f})"
+        for k, v in split["phases"].items())
+        + f"; matmul kernels in every phase {split['matmul_all']:.3f} ms "
+        f"({split['matmul_all'] / kernels_ms:.3f})")
+    for name, ms in sorted(split["groups"].items(), key=lambda kv: -kv[1]):
+        log(f"[lm train]   {name:32s} {ms:10.3f} ms ({ms / kernels_ms:.3f})")
+    log(f"[lm train]   attributed {attributed:.3f} ms of the kernels' "
+        f"{kernels_ms:.3f} ms (the host ops' linked kernels against the "
+        f"trace's device records)")
+    for e in sorted(device_events(prof),
+                    key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"[lm train]   {e.self_device_time_total / 1e3:10.3f} ms "
+            f"x{e.count:5d}  {e.key[:90]}")
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"[lm train] the loss did not fall at every "
+                             f"step: {losses}")
+    del params, state, prof
+    return {"losses": losses, "wall_ms": wall, "device_ms": dev,
+            "kernels_ms": kernels_ms, "peak_bytes": peak,
+            "tokens_per_s": TRAIN_B * TRAIN_S / wall * 1e3, **split}
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def lm_train_resume() -> dict:
+    """(c) the cut gemma-2b of (a), AdamW factored with a bfloat16 first
+    moment: an uninterrupted 4-step ``train_loop`` (checkpoints every 2
+    steps) against 2 steps, then a second ``train_loop`` to 4 steps that
+    resumes from the first's checkpoint: restored from step 2, 2 steps
+    run, losses at steps 2 and 3 within ``TRAIN_RESUME_RTOL``."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim import OptConfig
+    cfg = replace(get_config(TRAIN_ARCH), n_layers=TRAIN_CUT)
+    shape = InputShape("train", TRAIN_PARITY_S, TRAIN_PARITY_B, "train")
+    opt = OptConfig(factored=True, m_dtype=torch.bfloat16)
+    with tempfile.TemporaryDirectory() as root:
+        a, b = os.path.join(root, "a"), os.path.join(root, "b")
+        t0 = time.perf_counter()
+        whole = train_loop(cfg, shape, steps=4, ckpt_dir=a, ckpt_every=2,
+                           opt=opt, log_every=1)
+        t_whole = time.perf_counter() - t0
+        size = dir_bytes(os.path.join(a, "step_00000004"))
+        shutil.rmtree(a)
+        t0 = time.perf_counter()
+        first = train_loop(cfg, shape, steps=2, ckpt_dir=b, ckpt_every=2,
+                           opt=opt, log_every=1)
+        t1 = time.perf_counter()
+        resumed = train_loop(cfg, shape, steps=4, ckpt_dir=b, ckpt_every=2,
+                             opt=opt, log_every=1)
+        t2 = time.perf_counter()
+    errs = [abs(x / y - 1) for x, y in zip(resumed.losses, whole.losses[2:])]
+    log(f"[lm train resume] {cfg.name} at {cfg.n_layers} layers, factored "
+        f"v, bfloat16 m: a checkpoint is {size} bytes ({size / 2**30:.2f} "
+        f"GiB); uninterrupted 4 steps {t_whole:.1f} s (2 checkpoints), "
+        f"2 steps {t1 - t0:.1f} s, resumed 2 steps {t2 - t1:.1f} s "
+        f"(restored from {resumed.restored_from}, {resumed.steps} steps); "
+        f"losses {whole.losses} against {first.losses} + {resumed.losses}: "
+        f"max rel err {max(errs):.3e} (tol {TRAIN_RESUME_RTOL}); card "
+        f"{gpu_name_and_power_limit()}")
+    if resumed.restored_from != 2 or resumed.steps != 2 \
+            or first.losses != whole.losses[:2] \
+            or max(errs) > TRAIN_RESUME_RTOL:
+        raise AssertionError("[lm train resume] the resumed run differs")
+    return {"bytes": size, "max_rel_err": max(errs)}
+
+
+def lm_train_families() -> dict:
+    """(d) deepseek-v2-lite-16b (its dense layer and 2 MLA + MoE layers)
+    and zamba2-7b (6 Mamba2 layers, one use of a shared block) at full
+    width, B = 1, S = 4096: the loss and every gradient finite, a leaf the
+    forward does not reach without one (zamba2-7b's second shared block),
+    the router's gradient nonzero and each expert's nonzero exactly when
+    a kept choice routed a token to it; then 2 ``make_train_step`` steps
+    with finite losses."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch import make_train_step
+    from repro_torch.models import init_params, moe, transformer
+    from repro_torch.optim import OptConfig, opt_init
+    out = {}
+    for arch, depth in TRAIN_FAMILIES:
+        cfg = replace(get_config(arch), n_layers=depth)
+        params = init_params(cfg, generator=torch.Generator(
+            "cuda").manual_seed(3), device="cuda", dtype=torch.float32)
+        batch = make_batch(cfg, InputShape("train", TRAIN_S, TRAIN_B,
+                                           "train"), device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        routed = {}
+        apply = moe.moe_apply
+
+        def record(p, x, mcfg, *args, **kw):
+            with torch.no_grad():
+                flat = x.reshape(-1, x.shape[-1])
+                _, idx = moe.route(p.router, flat, mcfg)
+                keep = moe._positions_in_expert(idx, mcfg.n_routed) \
+                    < moe._default_capacity(flat.shape[0], mcfg)
+                routed[id(p)] = (p, set(idx[keep].unique().tolist()))
+            return apply(p, x, mcfg, *args, **kw)
+        params.requires_grad_(True)
+        named = list(params.named_parameters())
+        moe.moe_apply = record
+        try:
+            t0 = time.perf_counter()
+            loss = transformer.loss(params, cfg, batch)
+            grads = torch.autograd.grad(loss, [p for _, p in named],
+                                        allow_unused=True)
+            torch.cuda.synchronize()
+            t_grad = time.perf_counter() - t0
+        finally:
+            moe.moe_apply = apply
+        n_moe = sum(isinstance(m, moe.MoE) for m in params.modules())
+        if len(routed) != n_moe:
+            raise AssertionError(f"[lm train families] {arch}: routing read "
+                                 f"in {len(routed)} of {n_moe} MoE layers")
+        by_param = {id(p): g for (_, p), g in zip(named, grads)}
+        unreached = [n for (n, _), g in zip(named, grads) if g is None]
+        bad = [n for (n, _), g in zip(named, grads)
+               if g is not None and not bool(torch.isfinite(g).all())]
+        experts = []
+        for p, used in routed.values():
+            if not bool(by_param[id(p.router)].abs().max() > 0):
+                bad.append("router")
+            for w in (p.w_up, p.w_gate, p.w_down):
+                nonzero = by_param[id(w)].flatten(1).abs().amax(1) > 0
+                got = set(torch.nonzero(nonzero).flatten().tolist())
+                if got != used:
+                    bad.append(f"experts {sorted(got ^ used)}")
+            experts.append(len(used))
+        n_params = sum(p.numel() for _, p in named)
+        del grads, by_param, routed
+        opt = OptConfig()
+        state = opt_init(params, opt)
+        step = make_train_step(cfg, opt)
+        losses = [float(loss.detach())]
+        for _ in range(2):
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        log(f"[lm train families] {cfg.name} at full width, {depth} layers "
+            f"({n_params} parameters), B={TRAIN_B} S={TRAIN_S}: loss "
+            f"{losses[0]!r}, gradients finite but {bad or 'none'}, "
+            f"{len(unreached)} leaves unreached {unreached[:4]}; experts "
+            f"with tokens per MoE layer {experts or 'no MoE'}; loss and "
+            f"gradients {t_grad:.2f} s; 2 train steps' losses "
+            f"{losses[1:]}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card "
+            f"{gpu_name_and_power_limit()}")
+        if bad or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"[lm train families] {arch}: {bad}, "
+                                 f"{losses}")
+        out[arch] = {"losses": losses, "unreached": unreached}
+        del params, state, loss
+        free_cuda()
+    return out
+
+
+def lm_train_guard() -> None:
+    """(e) with grad mode on and parameters that require grad, the kernel
+    backend's forward raises B7's (gemma-2b, one layer, S = 4096) and B8's
+    (mamba2-1.3b, one layer, S = 256) ``RuntimeError`` before launching."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.data import make_batch
+    from repro_torch.models import forward, init_params
+    for arch, s, kernel in (("gemma-2b", TRAIN_S, "B7"),
+                            ("mamba2-1.3b", 256, "B8")):
+        cfg = replace(get_config(arch), n_layers=1)
+        params = init_params(cfg, device="cuda", dtype=torch.float32)
+        params.requires_grad_(True)
+        batch = make_batch(cfg, InputShape("prefill", s, 1, "prefill"),
+                           device="cuda")
+        reset_launch_counts()
+        try:
+            forward(params, cfg, batch, backend="kernel")
+        except RuntimeError as e:
+            if f"{kernel} is forward-only" not in str(e):
+                raise
+            msg = str(e)
+        else:
+            raise AssertionError(f"[lm train guard] {arch}: no error")
+        counts = launch_counts()
+        if any(counts.values()):
+            raise AssertionError(f"[lm train guard] launches {counts}")
+        log(f"[lm train guard] {arch} forward on the kernel backend with "
+            f"grad on: RuntimeError ({msg}); 0 launches")
+        del params
+        free_cuda()
+
+
+def phase_lm_train() -> dict:
+    """Phase 24: LM training on the card (``TRAIN_*``): (a) card against
+    CPU, (b) gemma-2b whole, (c) resume, (d) the other families, (e) the
+    guard.  The card is freed after each part, whose seconds it logs."""
+    out = {}
+    for name, part in (("parity", lm_train_parity), ("whole", lm_train_whole),
+                       ("resume", lm_train_resume),
+                       ("families", lm_train_families),
+                       ("guard", lm_train_guard)):
+        t0 = time.perf_counter()
+        out[name] = part()
+        free_cuda()
+        log(f"[lm train] part {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def dropless(cfg):
     """``cfg`` with MoE capacity factor 16, dropless at the decode checks'
     sizes: which choices are dropped depends on how many tokens a call
@@ -3880,6 +4392,7 @@ def main() -> int:
     lm = timed("lm prefill", phase_lm_prefill)
     widths = timed("lm widths", phase_lm_widths)
     moe = timed("lm moe", phase_lm_moe)
+    timed("lm train", phase_lm_train)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels += [{
         # B7 in bfloat16: the bfloat16 prefill steps' launches (zamba2-7b's

@@ -7,7 +7,8 @@ state encoding, the DFP network ("mlp", "cnn" and "attention" state
 modules), the decision service, the device rollout and lockstep engines,
 sequential and vectorised training, the comparison policies, the
 baseline zoo, the evaluation matrix and tournament, checkpoints and
-telemetry — and the LM zoo's prefill (configs, batches, the decoder stack for the
-dense, vlm, audio, ssm and hybrid families), with every TPU kernel of
-the reference as a CUDA kernel for Hopper (``kernels/``).
+telemetry — and the LM zoo's prefill, decode and training (configs,
+batches, the decoder stack for every family, the loss with remat, AdamW
+and the training driver), with every TPU kernel of the reference as a
+CUDA kernel for Hopper (``kernels/``).
 """

@@ -14,7 +14,10 @@ block).  The gradient is a ``torch.autograd.Function``, the counterpart of
 the JAX package's ``jax.custom_vjp``: its forward saves
 ``(q, k, v, lengths, o, lse)``; its backward computes
 ``delta = rowsum(do * o)`` as a plain operation, then dq and (dk, dv) with
-one kernel each.  The lengths get no gradient.
+one kernel each.  The lengths get no gradient.  ``flash_attention``
+builds no autograd graph: on the card it raises when grad mode is on and
+an operand requires grad, rather than return a result cut off from the
+graph.
 """
 from __future__ import annotations
 
@@ -64,6 +67,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_ref(q, k, v, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in named.values()):
+        raise RuntimeError(
+            "flash_attention: B7 is forward-only, as in the reference, so "
+            "an operand that requires grad would get no gradient through "
+            "it; train on the \"torch\" backend")
     with named_scope("mrsch.kernel.flash_attention"):
         out = kernel.flash_forward(q, k, v, causal)
     flash_attention.launches += 1

@@ -7,10 +7,11 @@ cumsum of dA; ``ref.prepare``).  x, B and C are not padded: the kernel
 reads tokens past S as zeros, which is what the padding gives, and takes
 them in the models' layout, strided, with no per-head copy of B and C.
 A tensor on the CPU goes through the plain version (``ref.ssd_plain``); a
-CUDA tensor launches the kernels or raises, never falling back.  On the
-card B8 is three launches (``kernel.PASSES``): ``ssd.launches`` counts the
-wrapper's calls and ``ssd.kernel_launches`` each pass's launches, counted
-by the pass.
+CUDA tensor launches the kernels or raises, never falling back.  B8
+builds no autograd graph: on the card it raises when grad mode is on and
+an operand requires grad.  On the card B8 is three launches
+(``kernel.PASSES``): ``ssd.launches`` counts the wrapper's calls and
+``ssd.kernel_launches`` each pass's launches, counted by the pass.
 """
 from __future__ import annotations
 
@@ -65,6 +66,12 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
         return ssd_plain(x, dt, dA, B, C, chunk=chunk, out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"ssd: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in named.values()):
+        raise RuntimeError(
+            "ssd: B8 is forward-only, as in the reference, so an operand "
+            "that requires grad would get no gradient through it; train on "
+            "the \"torch\" backend")
     if P not in kernel.HEAD_DIMS or N > kernel.MAX_STATE \
             or chunk > kernel.MAX_CHUNK:
         raise ValueError(f"ssd: P={P}, N={N}, chunk={chunk} has no kernel; "

@@ -25,6 +25,7 @@ from ..models import transformer
 from .steps import make_decode_step
 
 
+@torch.inference_mode()
 def generate(cfg, params, prompts: torch.Tensor, *, max_new_tokens: int = 16,
              max_len: Optional[int] = None,
              dtype=torch.float32) -> Dict[str, object]:
@@ -32,7 +33,8 @@ def generate(cfg, params, prompts: torch.Tensor, *, max_new_tokens: int = 16,
     float}, greedy, the cache of ``dtype`` on the prompts' device.  The
     prompt is fed token by token through the decode step; ``decode_tps``
     counts the new tokens over the wall time of their steps, after a
-    ``torch.cuda.synchronize()`` on the card."""
+    ``torch.cuda.synchronize()`` on the card.  Runs under
+    ``torch.inference_mode()``: no graph, even on parameters that train."""
     B, S0 = prompts.shape
     max_len = max_len or (S0 + max_new_tokens)
     device = prompts.device

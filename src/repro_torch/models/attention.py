@@ -25,6 +25,7 @@ from torch import nn
 from ..distributed.sharding import shard, tp_row_matmul
 from ..kernels.flash_attention import flash_attention
 from ..nn.backend import resolve_backend
+from ..obs.profiling import annotate
 from .layers import _init_dense, apply_rope, empty_param
 
 NEG_INF = -1e30
@@ -130,18 +131,21 @@ def attention_apply(params: Attention, x, positions, *, n_heads, n_kv_heads,
                     head_dim, rope_theta=10_000.0, rope_fraction=1.0,
                     causal=True, dense_threshold: int = 2048,
                     backend: str = "kernel") -> torch.Tensor:
-    """Self-attention for train and prefill.  x (B, S, D)."""
+    """Self-attention for train and prefill.  x (B, S, D).  The attention
+    core (not the projections) runs inside the profiler range
+    ``mrsch.lm.attention``."""
     B, S, D = x.shape
     q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim,
                            positions, rope_theta, rope_fraction)
-    if S <= dense_threshold:
-        out = dense_attention(_group_heads(q, n_kv_heads), k, v,
-                              causal=causal)
-    elif resolve_backend(backend) == "kernel":
-        out = flash_attention(q, k, v, causal=causal)
-    else:
-        out = flash_attention_scan(_group_heads(q, n_kv_heads), k, v,
-                                   causal=causal)
+    with annotate("mrsch.lm.attention"):
+        if S <= dense_threshold:
+            out = dense_attention(_group_heads(q, n_kv_heads), k, v,
+                                  causal=causal)
+        elif resolve_backend(backend) == "kernel":
+            out = flash_attention(q, k, v, causal=causal)
+        else:
+            out = flash_attention_scan(_group_heads(q, n_kv_heads), k, v,
+                                       causal=causal)
     out = out.reshape(B, S, n_heads * head_dim)
     return shard(tp_row_matmul(out, params.wo), "batch", "act_seq", None)
 

@@ -9,7 +9,8 @@ weights with the reference's distributions from a ``torch.Generator``
 (the numbers differ from ``jax.random``'s), and each ``*_init`` does
 both.  The ``*_apply`` functions mirror the reference's:
 compute in the parameters' dtype, norms and softmax in float32.
-Parameters are made without gradients: this slice runs forward only.
+Parameters are made without gradients; the training entry points turn
+them on (``launch.steps.make_train_step``).
 """
 from __future__ import annotations
 

@@ -107,11 +107,16 @@ def _ssd_chunked(xh, dt, dA, B_, C_, chunk: int) -> torch.Tensor:
     l = torch.cumsum(dAc, dim=2)                            # (B,nc,Q,H)
     l_last = l[:, :, -1]                                    # (B,nc,H)
 
-    # intra-chunk: decay(i, j) = exp(l_i - l_j) for i >= j
+    # intra-chunk: decay(i, j) = exp(l_i - l_j) for i >= j.  The reference
+    # masks exp(diff) after the exp; masking diff to -inf before it gives
+    # the same values, and a finite gradient where exp(l_i - l_j) for
+    # i < j overflows (inf * 0 in the backward of the masked entries: at
+    # full width a chunk's decay reaches exp(200)).
     diff = l[:, :, :, None, :] - l[:, :, None, :, :]        # (B,nc,Qi,Qj,H)
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=xh.device))
-    decay = torch.where(mask[None, None, :, :, None], torch.exp(diff), 0.0)
+    decay = torch.exp(torch.where(mask[None, None, :, :, None], diff,
+                                  float("-inf")))
     scores = torch.einsum("bcihn,bcjhn->bcijh", Cc, Bc)
     w = scores * decay * dtc[:, :, None, :, :]
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", w.to(xc.dtype), xc)

@@ -29,6 +29,7 @@ from torch import nn
 from ..configs.base import MLAConfig
 from ..kernels.flash_attention import flash_attention
 from ..nn.backend import resolve_backend
+from ..obs.profiling import annotate
 from .attention import NEG_INF, dense_attention, flash_attention_scan
 from .layers import RMSNorm, _init_dense, apply_rope, empty_param, rmsnorm
 
@@ -89,7 +90,9 @@ def _compressed_kv(params: MLA, x, mla: MLAConfig, positions):
 def mla_apply(params: MLA, x, positions, *, n_heads: int, mla: MLAConfig,
               dense_threshold: int = 2048,
               backend: str = "kernel") -> torch.Tensor:
-    """Decompressed-form MLA for prefill.  x (B, S, D) -> (B, S, D)."""
+    """Decompressed-form MLA for prefill.  x (B, S, D) -> (B, S, D).  The
+    attention core runs inside the profiler range ``mrsch.lm.attention``,
+    as ``attention_apply``'s does."""
     B, S, _ = x.shape
     q_nope, q_rope = _queries(params, x, n_heads, mla, positions)
     c, k_rope = _compressed_kv(params, x, mla, positions)
@@ -98,15 +101,17 @@ def mla_apply(params: MLA, x, positions, *, n_heads: int, mla: MLAConfig,
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, n_heads, mla.qk_rope_head_dim)], dim=-1)
-    if S <= dense_threshold:
-        # Grouped layout with KV == heads (MLA decompresses per head).
-        out = dense_attention(q[:, :, :, None, :], k, v, causal=True)
-    elif resolve_backend(backend) == "kernel":
-        pad = q.shape[-1] - mla.v_head_dim
-        out = flash_attention(q, k, F.pad(v, (0, pad)),
-                              causal=True)[..., : mla.v_head_dim]
-    else:
-        out = flash_attention_scan(q[:, :, :, None, :], k, v, causal=True)
+    with annotate("mrsch.lm.attention"):
+        if S <= dense_threshold:
+            # Grouped layout with KV == heads (MLA decompresses per head).
+            out = dense_attention(q[:, :, :, None, :], k, v, causal=True)
+        elif resolve_backend(backend) == "kernel":
+            pad = q.shape[-1] - mla.v_head_dim
+            out = flash_attention(q, k, F.pad(v, (0, pad)),
+                                  causal=True)[..., : mla.v_head_dim]
+        else:
+            out = flash_attention_scan(q[:, :, :, None, :], k, v,
+                                       causal=True)
     out = out.reshape(B, S, n_heads * mla.v_head_dim)
     return out @ params.wo
 

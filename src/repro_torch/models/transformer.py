@@ -1,6 +1,6 @@
-"""Config-driven decoder stack of the LM zoo for serving (the JAX
-package's ``models/transformer.py``): the full-sequence forward (prefill)
-and the one-token decode step against a cache.
+"""Config-driven decoder stack of the LM zoo (the JAX package's
+``models/transformer.py``): the full-sequence forward (prefill and
+training), the loss, and the one-token decode step against a cache.
 
 One generic implementation; blocks compose by ``ModelConfig``:
 
@@ -24,8 +24,12 @@ reference returns a new cache each step (and ``generate`` donates the old
 one); here each step writes its token's slice into the cache in place and
 returns the same tree.
 
-Not here yet, an item of the roadmap's module queue: the loss with
-rematerialisation and training.
+``forward`` and ``loss`` build an autograd graph when a parameter requires
+a gradient (the training entry points turn them on; ``init_params`` makes
+them frozen), on the ``"torch"`` backend only: B7 and B8 are forward-only,
+as in the reference, and refuse a graph on the card.  ``remat`` recomputes
+each block's activations in the backward (``torch.utils.checkpoint``), as
+the reference's ``jax.checkpoint`` does.
 """
 from __future__ import annotations
 
@@ -33,15 +37,18 @@ from typing import Dict, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..distributed.sharding import shard
+from ..obs.profiling import annotate
 from . import attention as attn
 from . import mamba2 as ssd
 from . import mla as mla_mod
 from . import moe as moe_mod
 from .layers import (FFN, Embedding, LMHead, RMSNorm, embedding_lookup,
-                     ffn_apply, lm_head_apply, rmsnorm, unembed)
+                     ffn_apply, lm_head_apply, rmsnorm,
+                     softmax_cross_entropy, unembed)
 
 # ------------------------------------------------------------------ blocks
 class Block(nn.Module):
@@ -84,24 +91,29 @@ class SharedBlock(nn.Module):
 
 def _block_apply(params: Block, cfg: ModelConfig, kind: str, x, positions,
                  backend: str):
-    if kind == "ssm":
-        return x + ssd.mamba2_apply(
-            params.ssm, rmsnorm(params.norm1, x, cfg.norm_eps), cfg.ssm,
-            backend=backend)
-    h = rmsnorm(params.norm1, x, cfg.norm_eps)
-    if cfg.mla is not None:
-        a = mla_mod.mla_apply(params.mla, h, positions, n_heads=cfg.n_heads,
-                              mla=cfg.mla, backend=backend)
-    else:
-        a = attn.attention_apply(params.attn, h, positions,
-                                 n_heads=cfg.n_heads,
-                                 n_kv_heads=cfg.n_kv_heads,
-                                 head_dim=cfg.resolved_head_dim,
-                                 rope_theta=cfg.rope_theta,
-                                 rope_fraction=cfg.rope_fraction,
-                                 backend=backend)
-    x = x + a
-    return x + _ffn(params, cfg, kind, rmsnorm(params.norm2, x, cfg.norm_eps))
+    """One layer, inside its profiler range (``mrsch.lm.block``; under
+    remat the range opens again for the backward's recompute)."""
+    with annotate("mrsch.lm.block"):
+        if kind == "ssm":
+            return x + ssd.mamba2_apply(
+                params.ssm, rmsnorm(params.norm1, x, cfg.norm_eps), cfg.ssm,
+                backend=backend)
+        h = rmsnorm(params.norm1, x, cfg.norm_eps)
+        if cfg.mla is not None:
+            a = mla_mod.mla_apply(params.mla, h, positions,
+                                  n_heads=cfg.n_heads, mla=cfg.mla,
+                                  backend=backend)
+        else:
+            a = attn.attention_apply(params.attn, h, positions,
+                                     n_heads=cfg.n_heads,
+                                     n_kv_heads=cfg.n_kv_heads,
+                                     head_dim=cfg.resolved_head_dim,
+                                     rope_theta=cfg.rope_theta,
+                                     rope_fraction=cfg.rope_fraction,
+                                     backend=backend)
+        x = x + a
+        return x + _ffn(params, cfg, kind,
+                        rmsnorm(params.norm2, x, cfg.norm_eps))
 
 
 def _ffn(params: Block, cfg: ModelConfig, kind: str, h):
@@ -181,9 +193,15 @@ def init_params(cfg: ModelConfig, *, generator=None, device=None,
 
 
 def _run_stack(layers, cfg: ModelConfig, kind: str, x, positions,
-               backend: str):
+               backend: str, remat: bool = False):
+    """The layers in order; with ``remat`` each block keeps only its input
+    for the backward and recomputes the rest there."""
     for p in layers:
-        x = _block_apply(p, cfg, kind, x, positions, backend)
+        if remat:
+            x = checkpoint(_block_apply, p, cfg, kind, x, positions, backend,
+                           use_reentrant=False)
+        else:
+            x = _block_apply(p, cfg, kind, x, positions, backend)
     return x
 
 
@@ -206,11 +224,14 @@ def _hybrid_plan(cfg: ModelConfig):
             yield range(i, i + n), None, None
 
 
-def _hybrid_run(params: LM, cfg: ModelConfig, x, positions, backend: str):
-    """The hybrid's backbone over the whole sequence (``_hybrid_plan``)."""
+def _hybrid_run(params: LM, cfg: ModelConfig, x, positions, backend: str,
+                remat: bool = False):
+    """The hybrid's backbone over the whole sequence (``_hybrid_plan``);
+    ``remat`` reaches the SSM layers, not the shared blocks, as in the
+    reference."""
     for layers, seg, block in _hybrid_plan(cfg):
         x = _run_stack(params.stack[layers.start:layers.stop], cfg, "ssm", x,
-                       positions, backend)
+                       positions, backend, remat)
         if seg is not None:
             x = _shared_block_apply(params.shared_blocks[block], cfg, x,
                                     positions, backend)
@@ -239,23 +260,50 @@ def _logits(params: LM, cfg: ModelConfig, x):
     return logits
 
 
-@torch.no_grad()
-def forward(params: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
-            backend: str = "kernel") -> torch.Tensor:
-    """Full-sequence forward -> logits (B, S, V[, K]), float32."""
+def _hidden(params: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            backend: str, remat: bool) -> torch.Tensor:
+    """The stack's output after the final norm, (B, S, D)."""
     x = _inputs_to_h(params, cfg, batch)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     prefix_n, prefix_kind, _, main_kind = _layer_plan(cfg)
     if prefix_n:
         x = _run_stack(params.prefix, cfg, prefix_kind, x, positions,
-                       backend)
+                       backend, remat)
     if cfg.family == "hybrid":
-        x = _hybrid_run(params, cfg, x, positions, backend)
+        x = _hybrid_run(params, cfg, x, positions, backend, remat)
     else:
-        x = _run_stack(params.stack, cfg, main_kind, x, positions, backend)
-    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    return _logits(params, cfg, x)
+        x = _run_stack(params.stack, cfg, main_kind, x, positions, backend,
+                       remat)
+    return rmsnorm(params.final_norm, x, cfg.norm_eps)
+
+
+def forward(params: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            backend: str = "kernel", remat: bool = False) -> torch.Tensor:
+    """Full-sequence forward -> logits (B, S, V[, K]), float32.  With
+    ``remat`` every block (the MoE prefix's too) recomputes its
+    activations in the backward; the hybrid's shared blocks keep theirs."""
+    return _logits(params, cfg, _hidden(params, cfg, batch, backend, remat))
+
+
+def loss(params: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+         remat: bool = True) -> torch.Tensor:
+    """Mean softmax cross-entropy of ``batch["labels"]`` (B, S[, K]) in
+    float32; musicgen's is the mean over its codebooks.  A 0-d tensor.
+    It runs the ``"torch"`` backend: the loss is for training, and B7 and
+    B8 are forward-only.  The logits and the cross-entropy run inside the
+    profiler range ``mrsch.lm.logits_ce``."""
+    x = _hidden(params, cfg, batch, "torch", remat)
+    labels = batch["labels"]
+    with annotate("mrsch.lm.logits_ce"):
+        logits = _logits(params, cfg, x)
+        if cfg.n_codebooks > 1:
+            total = 0.0
+            for c in range(cfg.n_codebooks):
+                total = total + softmax_cross_entropy(logits[..., c, :],
+                                                      labels[..., c])
+            return total / cfg.n_codebooks
+        return softmax_cross_entropy(logits, labels)
 
 
 # ------------------------------------------------------------------ decode

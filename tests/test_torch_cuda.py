@@ -881,6 +881,28 @@ def test_ssd_wrapper_rejects_and_never_falls_back(cuda):
         ssd(x, dt, dA, bm.cpu(), cm, chunk=16)
 
 
+def test_b7_and_b8_refuse_a_graph(cuda):
+    """B7 and B8 are forward-only, as in the reference: with grad mode on
+    and an operand that requires grad, each wrapper raises before it
+    launches, rather than return a result cut off from the graph; under
+    ``torch.no_grad()`` the same call launches."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd import ssd
+    q, k, v = _flash_case(1, 70, 70, 4, 2, 64, torch.float32, 0, cuda)
+    x, dt, dA, bm, cm = _ssd_case(1, 64, 2, 16, 8, 2, torch.float32, 1, cuda)
+    launches = (flash_attention.launches, ssd.launches)
+    with pytest.raises(RuntimeError, match="B7 is forward-only"):
+        flash_attention(q.requires_grad_(True), k, v)
+    with pytest.raises(RuntimeError, match="B8 is forward-only"):
+        ssd(x, dt.requires_grad_(True), dA, bm, cm, chunk=16)
+    assert (flash_attention.launches, ssd.launches) == launches
+    with torch.no_grad():
+        flash_attention(q, k, v)
+        ssd(x, dt, dA, bm, cm, chunk=16)
+    assert (flash_attention.launches, ssd.launches) == (launches[0] + 1,
+                                                        launches[1] + 1)
+
+
 def test_lm_prefill_kernel_backend_matches_torch_backend(cuda):
     """A zamba2-7b smoke model (4 Mamba2 layers, 2 shared attention
     blocks) past the dense threshold (S = 2176 > 2048): the kernel backend

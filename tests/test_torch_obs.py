@@ -237,7 +237,8 @@ def test_no_raw_profiler_ranges_left_in_the_package():
             "mrsch.kernel.mha_bwd", "mrsch.kernel.flash_attention",
             "mrsch.kernel.ssd", "mrsch.device.rollout",
             "mrsch.vector.policy_select", "mrsch.train.episode_flush",
-            "mrsch.train.grad_steps"} == scopes
+            "mrsch.train.grad_steps", "mrsch.lm.block", "mrsch.lm.attention",
+            "mrsch.lm.logits_ce", "mrsch.lm.adamw"} == scopes
 
 
 # ----------------------------------------------------- train registry
