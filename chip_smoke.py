@@ -228,11 +228,32 @@ prints its wall seconds:
    shared block) at full width, B = 1, S = 4096: finite losses and
    gradients, each expert's gradient nonzero exactly when a kept choice
    routed it a token, 2 train steps; (e) the kernel backend's forward
-   with grad on raises B7's and B8's ``RuntimeError``.
+   with grad on raises B7's and B8's ``RuntimeError``;
+25. the fleet scheduler (``launch/scheduler.py``) at ``main``'s defaults
+   on the card: ``make_fleet_agent`` (400 jobs, 6 episodes) trains the
+   fleet agent, which then schedules 150 jobs (seed 1000) of
+   ``FleetSpec()``; B1, B2 and B3 counted from 0 over both and asserted
+   launched, 64 sampled greedy rows held against the plain version as
+   6's (``check_served_rows``), one training step's loss and gradient
+   leaves on both backends (``check_step_parity``, 13/10/13 launches),
+   and B1 (M 1, 16, 48), B2 and B3 (M 48) at the fleet net's layer
+   shapes against their plain versions; the training wall, decisions/s, the
+   MRSch, FCFS and GA metrics rows, and the job mix's demand vectors with
+   the card's own memory and power limit in ``FleetSpec``;
+26. the multi-card layer on a one-card mesh: (a) a world-size-1 NCCL
+   group and ``make_host_mesh()``; (b) gemma-2b at full width, 2 layers,
+   float32, one ``make_train_step`` under ``default_rules`` (DTensor
+   parameters, state and batch) against the same step without rules,
+   every parameter within 1e-6 relative, both timed; (c)
+   deepseek-v2-lite-16b's MoE layer at full width (64 experts) through
+   ``_moe_small_t`` under ``serve_rules`` against the no-mesh layer; (d)
+   ``python -m repro_torch.launch.dryrun`` for gemma-2b x prefill_32k and
+   deepseek-v2-lite-16b x decode_32k on the 16 x 16 mesh (a fake world
+   of 256 ranks, no card), each record ``ok`` and printed.
 
 The line before the last is a JSON summary of the kernels (B1's times
 are the 13 DFP layers' at M = 64; B1, B2, B3, B5 and B6 count the
-launches of 17-22 too; ``window_pack``'s times are the fused round
+launches of 17-22 too, B1-B3 also 25's; ``window_pack``'s times are the fused round
 front's on the MLP path's median round, its plain time the composite's,
 its launches both device paths' and 22's), B7 as two
 entries: ``flash_attention`` (``flash_fwd_sm90.cu``, bfloat16; its launches
@@ -1580,21 +1601,20 @@ def bwd_check(name: str, got, ref, dtype, what: str) -> float:
     return worst
 
 
-def phase_backward_parity(agent) -> dict:
-    """dgrad and wgrad against their plain versions on the card at the 13
-    DFP layer shapes; returns the worst absolute error per kernel and
-    dtype."""
+def layer_grad_cases(layers, ms, gen, worst: dict, where: str = "") -> int:
+    """dgrad and wgrad against their plain versions on the card at each
+    ``(K, N, _)`` of ``layers`` and each M of ``ms``, both dtypes, all
+    activations; folds the largest absolute errors into ``worst`` and
+    returns the number of cases."""
     from repro_torch.kernels.fused_mlp import (ACTIVATIONS, fused_mlp_dgrad,
                                                fused_mlp_dgrad_ref,
                                                fused_mlp_wgrad,
                                                fused_mlp_wgrad_ref)
     from repro_torch.kernels.fused_mlp.ref import apply_activation
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    worst = {(k, d): 0.0 for k in ("dgrad", "wgrad") for d in BWD_TOL}
     cases = 0
-    for k, n, _ in forward_layers(agent.net):
+    for k, n, _ in layers:
         w32 = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
-        for m in BWD_PARITY_M:
+        for m in ms:
             x32 = torch.randn(m, k, generator=gen, device="cuda")
             g32 = torch.randn(m, n, generator=gen, device="cuda")
             pre = torch.randn(m, n, generator=gen, device="cuda")
@@ -1602,7 +1622,7 @@ def phase_backward_parity(agent) -> dict:
                 x, g, w = x32.to(dtype), g32.to(dtype), w32.to(dtype)
                 for act in ACTIVATIONS:
                     y = apply_activation(pre, act, 0.2).to(dtype)
-                    what = f"K={k} N={n} M={m} {dtype} {act}"
+                    what = f"{where}K={k} N={n} M={m} {dtype} {act}"
                     dx = fused_mlp_dgrad(g, y, w, activation=act)
                     dw_db = fused_mlp_wgrad(x, g, y, activation=act)
                     errs = (bwd_check("dgrad", dx,
@@ -1614,6 +1634,22 @@ def phase_backward_parity(agent) -> dict:
                     for kind, err in zip(("dgrad", "wgrad"), errs):
                         worst[kind, dtype] = max(worst[kind, dtype], err)
                     cases += 1
+    return cases
+
+
+def phase_backward_parity(agent) -> dict:
+    """dgrad and wgrad against their plain versions on the card at the 13
+    DFP layer shapes; returns the worst absolute error per kernel and
+    dtype."""
+    from repro_torch.kernels.fused_mlp import (ACTIVATIONS, fused_mlp_dgrad,
+                                               fused_mlp_dgrad_ref,
+                                               fused_mlp_wgrad,
+                                               fused_mlp_wgrad_ref)
+    from repro_torch.kernels.fused_mlp.ref import apply_activation
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst = {(k, d): 0.0 for k in ("dgrad", "wgrad") for d in BWD_TOL}
+    cases = layer_grad_cases(forward_layers(agent.net), BWD_PARITY_M, gen,
+                             worst)
     # The attention encoder's layers, whose wgrad splits M across blocks;
     # two wgrad launches on the same inputs must give the same bits.
     encoder = 0
@@ -4378,6 +4414,317 @@ def dropless(cfg):
     return replace(cfg, moe=replace(cfg.moe, capacity_factor=GEN_CAPACITY))
 
 
+# ------------------------------------------------ phase 25: the fleet
+FLEET_KERNELS = {"fused_mlp_forward": "forward", "fused_mlp_dgrad": "dgrad",
+                 "fused_mlp_wgrad": "wgrad"}
+FLEET_JOBS, FLEET_SEED = 150, 1000          # scheduler.main's defaults
+FLEET_SAMPLED = 64
+# The M the fleet path gives B1 (one decision, a service-sized batch, a
+# minibatch of ``fleet_agent_config``'s 48) and B2/B3 (the minibatch).
+FLEET_FWD_M, FLEET_BWD_M = (1, 16, 48), (48,)
+
+
+def sample_greedy_rows(agent, every: int = 5) -> list:
+    """Wrap ``agent.select`` (until ``del agent.select``) so every
+    ``every``-th greedy decision's packed row and served action are kept,
+    up to ``FLEET_SAMPLED``."""
+    from repro_torch.core.encoding import (decision_row_dim,
+                                           encode_decision_row)
+    sampled, n = [], [0]
+    select = agent.select
+
+    def recording(ctx):
+        action = select(ctx)
+        n[0] += 1
+        if n[0] % every == 0 and len(sampled) < FLEET_SAMPLED:
+            w = agent.config.window
+            row = np.zeros(decision_row_dim(agent.enc, w), np.float32)
+            encode_decision_row(agent.enc, ctx, w, out=row)
+            sampled.append((row, action))
+        return action
+
+    agent.select = recording
+    return sampled
+
+
+def check_fleet_layers(agent) -> dict:
+    """B1 at the fleet net's layer shapes (``forward_layers``) and the
+    path's M (``FLEET_FWD_M``), within ``TOL``, and B2/B3 at its
+    minibatch (``FLEET_BWD_M``), within ``BWD_TOL``, against their plain
+    versions on the card, both dtypes, all activations; returns the worst
+    float32 absolute error per kind."""
+    from repro_torch.kernels.fused_mlp import (ACTIVATIONS, fused_mlp,
+                                               fused_mlp_layer_ref)
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    layers = forward_layers(agent.net)
+    fwd = {dtype: 0.0 for dtype in TOL}
+    cases = 0
+    for k, n, _ in layers:
+        w32 = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
+        b32 = 0.1 * torch.randn(n, generator=gen, device="cuda")
+        for dtype, tol in TOL.items():
+            w, b = w32.to(dtype), b32.to(dtype)
+            for m in FLEET_FWD_M:
+                x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+                for act in ACTIVATIONS:
+                    with torch.no_grad():
+                        y = fused_mlp(x, w, b, activation=act).float()
+                        r = fused_mlp_layer_ref(x, w, b, act).float()
+                    err = (y - r).abs()
+                    bad = err > tol + tol * r.abs()
+                    if bad.any():
+                        raise AssertionError(
+                            f"[fleet parity] forward K={k} N={n} M={m} "
+                            f"{dtype} {act}: {int(bad.sum())} elements off, "
+                            f"max abs err {float(err.max())}")
+                    fwd[dtype] = max(fwd[dtype], float(err.max()))
+                    cases += 1
+    worst = {(k, d): 0.0 for k in ("dgrad", "wgrad") for d in BWD_TOL}
+    bwd = layer_grad_cases(layers, FLEET_BWD_M, gen, worst, "fleet ")
+    torch.cuda.synchronize()
+    shapes = sorted({(k, n) for k, n, _ in layers})
+    log(f"[fleet parity] the fleet net's {len(layers)} layers {shapes}: "
+        f"{cases} forward cases (M {FLEET_FWD_M}) and {bwd} dgrad/wgrad "
+        f"cases (M {FLEET_BWD_M}), 2 dtypes x 4 activations, pass; worst "
+        f"abs err float32 forward {fwd[torch.float32]!r} (tol 2e-4), dgrad "
+        f"{worst['dgrad', torch.float32]!r}, wgrad "
+        f"{worst['wgrad', torch.float32]!r} (rtol 1e-3, atol 1e-4); "
+        f"bfloat16 forward {fwd[torch.bfloat16]!r}, dgrad "
+        f"{worst['dgrad', torch.bfloat16]!r}, wgrad "
+        f"{worst['wgrad', torch.bfloat16]!r} (2e-2)")
+    return {"forward": fwd[torch.float32],
+            **{kind: worst[kind, torch.float32] for kind in ("dgrad", "wgrad")}}
+
+
+def phase_fleet() -> dict:
+    """Phase 25: MRSch as the fleet scheduler at ``scheduler.main``'s
+    defaults on the card (module docstring)."""
+    from repro_torch.launch import scheduler as fs
+    fleet = fs.FleetSpec()
+    jobs = fs.synth_fleet_trace(fleet, FLEET_JOBS, seed=FLEET_SEED)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    agent = fs.make_fleet_agent(fleet)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    trained = launch_counts()
+    sampled = sample_greedy_rows(agent)
+    t0 = time.perf_counter()
+    result = fs.schedule_fleet(jobs, fleet, "mrsch", agent=agent)
+    eval_s = time.perf_counter() - t0
+    del agent.select
+    launches = launch_counts()
+    assert agent.device.type == "cuda" and agent.dfp.backend == "kernel"
+    for kind in ("forward", "dgrad", "wgrad"):
+        assert trained[kind] > 0, f"fleet training launched no {kind}"
+    assert launches["forward"] > trained["forward"], "no B1 while deciding"
+    assert all(launches[k] == 0 for k in KERNELS
+               if k not in ("forward", "dgrad", "wgrad")), launches
+    log(f"[fleet] make_fleet_agent: {train_s:.2f} s wall, "
+        f"{len(agent.losses)} bursts, replay {agent.replay.rows} rows, "
+        f"launches B1 {trained['forward']} B2 {trained['dgrad']} "
+        f"B3 {trained['wgrad']}")
+    log(f"[fleet] schedule_fleet mrsch: {result.decisions} decisions in "
+        f"{eval_s:.3f} s ({result.decisions / eval_s:.1f} decisions/s), "
+        f"B1 {launches['forward'] - trained['forward']}")
+    err, tol, decisive = check_served_rows(agent, sampled)
+    log(f"[fleet] {len(sampled)} sampled greedy rows against the plain "
+        f"version: max abs err {err!r} (tol {tol!r}), {decisive} decisive "
+        f"rows with the same action")
+    check_step_parity(agent, MLP_STEP, "fleet train parity")
+    errs = check_fleet_layers(agent)
+    errs["forward"] = max(errs["forward"], err)
+    rows = {"mrsch": result.metrics.as_row()}
+    for policy in ("fcfs", "ga"):
+        t0 = time.perf_counter()
+        rows[policy] = fs.schedule_fleet(jobs, fleet, policy).metrics.as_row()
+        log(f"[fleet] schedule_fleet {policy}: "
+            f"{time.perf_counter() - t0:.2f} s (host)")
+    for policy, row in rows.items():
+        log(f"[fleet] {policy} " + json.dumps(
+            {"policy": policy, **{k: round(v, 4) for k, v in row.items()}}))
+    hbm_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    watts = float(gpu_name_and_power_limit().split(",")[1].split()[0])
+    card_fleet = replace(fleet, hbm_gb_per_chip=hbm_gb, watts_per_chip=watts)
+    from repro_torch.configs import ARCH_NAMES
+    for arch in ARCH_NAMES:
+        demands = {s: (fs.job_demands(arch, s, fleet),
+                       fs.job_demands(arch, s, card_fleet))
+                   for s in ("train_4k", "prefill_32k", "decode_32k")}
+        log(f"[fleet] demands {arch} (FleetSpec() -> {hbm_gb:.1f} GB, "
+            f"{watts:.0f} W): " + "; ".join(
+                f"{s} {a} -> {b}" for s, (a, b) in demands.items()))
+    free_cuda()
+    return {"launches": launches, "err": errs, "rows": rows,
+            "train_s": train_s, "decisions_per_s": result.decisions / eval_s}
+
+
+# ------------------------------------------------ phase 26: the mesh
+MESH_SEQ, MESH_BATCH = 1024, 2
+MOE_TOKENS = (8, 16)                     # B, S: small T (<= 4096)
+
+
+def mesh_train_step(cfg, batch, mesh, sharded: bool, reps: int = 3):
+    """One gemma-2b step from seed-0 weights, with or without the rules;
+    returns (parameters after the first step, loss, step walls)."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.optim import OptConfig, opt_init
+    opt = OptConfig(lr=1e-4)
+    params = transformer.init_params(
+        cfg, dtype=torch.float32,
+        generator=torch.Generator("cuda").manual_seed(0))
+    state = opt_init(params, opt)
+    fn = steps.make_train_step(cfg, opt)
+    if sharded:
+        rules = sh.default_rules(mesh)
+        pspecs = sh.param_pspecs(params, rules)
+        state = sh.distribute_tree(
+            state, steps.param_pspecs_for_opt(state, pspecs), mesh)
+        sh.distribute_params(params, rules, pspecs)
+        batch = sh.distribute_tree(batch, steps.batch_pspec(rules, batch),
+                                   mesh)
+        fn = steps._bind_rules(fn, rules)
+    walls = []
+    for i in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, metrics = fn(params, state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            first = {n: (p.full_tensor() if sharded else p).detach().clone()
+                     for n, p in params.named_parameters()}
+            loss = metrics["loss"]
+            loss = float(loss.full_tensor() if sharded else loss)
+    return first, loss, walls
+
+
+def phase_mesh() -> dict:
+    """Phase 26: the multi-card layer on a one-card mesh (module
+    docstring)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            torch.cuda.set_device(0)
+            mesh = make_host_mesh()
+            assert mesh.device_type == "cuda" and tuple(mesh.shape) == (1, 1)
+            log(f"[mesh] world 1 on nccl: {mesh}")
+            cfg = replace(get_config("gemma-2b"), n_layers=2)
+            batch = make_batch(cfg, InputShape("t", MESH_SEQ, MESH_BATCH,
+                                               "train"), 0)
+            p0, l0, w0 = mesh_train_step(cfg, batch, mesh, False)
+            p1, l1, w1 = mesh_train_step(cfg, batch, mesh, True)
+            rel = max(float((p1[n] - p0[n]).abs().max()
+                            / p0[n].abs().max().clamp_min(1e-30))
+                      for n in p0)
+            assert rel <= 1e-6, f"sharded step: relative error {rel!r}"
+            assert abs(l1 - l0) <= 1e-6 * abs(l0), (l0, l1)
+            out["train"] = {"rel": rel, "plain_s": w0, "sharded_s": w1}
+            log(f"[mesh] gemma-2b 2 layers float32 B={MESH_BATCH} "
+                f"S={MESH_SEQ}: loss {l0!r} / {l1!r} under default_rules, "
+                f"parameters within {rel!r} relative; step wall plain "
+                f"{statistics.median(w0[1:]) * 1e3:.2f} ms, sharded "
+                f"{statistics.median(w1[1:]) * 1e3:.2f} ms (walls "
+                f"{[round(w, 4) for w in w0]} / {[round(w, 4) for w in w1]})")
+            del p0, p1
+            free_cuda()
+            out["moe"] = mesh_moe(mesh)
+        finally:
+            dist.destroy_process_group()
+    out["dryrun"] = mesh_dryrun()
+    return out
+
+
+def mesh_moe(mesh) -> dict:
+    """Phase 26(c): deepseek-v2-lite-16b's MoE layer at full width through
+    ``_moe_small_t`` under ``serve_rules`` against the no-mesh layer."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import moe
+    cfg = get_config("deepseek-v2-lite-16b")
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = moe.moe_init(cfg.d_model, cfg.moe, cfg.glu, torch.float32,
+                          generator=gen, device="cuda")
+    B, S = MOE_TOKENS
+    x = torch.randn(B, S, cfg.d_model, generator=gen, device="cuda")
+    calls = []
+    small_t = moe._moe_small_t
+
+    def counting(*a, **k):
+        calls.append(1)
+        return small_t(*a, **k)
+
+    with torch.no_grad():
+        want = moe.moe_apply(params, x, cfg.moe, cfg.act, cfg.glu)
+        rules = sh.serve_rules(mesh)
+        sh.distribute_params(params, rules,
+                             sh.param_pspecs(params, rules, "stack/moe/"))
+        xd = distribute_tensor(x, mesh, sh.placements(
+            rules.spec(("batch", None, None), x.shape), mesh))
+        moe._moe_small_t = counting
+        try:
+            with sh.use_rules(rules):
+                got = moe.moe_apply(params, xd, cfg.moe, cfg.act,
+                                    cfg.glu).full_tensor()
+        finally:
+            moe._moe_small_t = small_t
+    assert calls, "the small-T path did not run"
+    err = float((got - want).abs().max())
+    tol = 1e-5 * max(1.0, float(want.abs().max()))
+    assert err <= tol, f"MoE under serve_rules: {err!r} > {tol!r}"
+    log(f"[mesh] deepseek-v2-lite-16b MoE ({cfg.moe.n_routed} experts, "
+        f"d_model {cfg.d_model}, d_expert {cfg.moe.d_expert}) on "
+        f"{B * S} tokens through _moe_small_t under serve_rules: max abs "
+        f"err {err!r} against the no-mesh layer (tol {tol!r})")
+    del params, x, xd
+    free_cuda()
+    return {"err": err}
+
+
+DRYRUN_CELLS = (("gemma-2b", "prefill_32k"),
+                ("deepseek-v2-lite-16b", "decode_32k"))
+
+
+def mesh_dryrun() -> dict:
+    """Phase 26(d): the dry run of two cells on a fake 16 x 16 world, each
+    in a process of its own, the two at once; each record ``ok``,
+    printed."""
+    import tempfile
+    recs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out", tmp,
+             "--force"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+            for arch, shape in DRYRUN_CELLS]
+        outs = [p.communicate(timeout=300) for p in procs]
+        for (arch, shape), p, (_, err) in zip(DRYRUN_CELLS, procs, outs):
+            assert p.returncode == 0, err[-3000:]
+            with open(os.path.join(tmp, f"{arch}__{shape}__single.json")) as f:
+                rec = json.load(f)
+            assert rec["status"] == "ok", rec
+            recs[arch, shape] = rec
+            log(f"[mesh] dryrun {arch} x {shape}: " + json.dumps(rec))
+        log(f"[mesh] dryrun: both cells in {time.perf_counter() - t0:.1f} s")
+    return recs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -4393,6 +4740,14 @@ def main() -> int:
     widths = timed("lm widths", phase_lm_widths)
     moe = timed("lm moe", phase_lm_moe)
     timed("lm train", phase_lm_train)
+    fleet = timed("fleet", phase_fleet)
+    timed("mesh", phase_mesh)
+    for entry in kernels:                 # phase 25's path runs B1-B3
+        kind = FLEET_KERNELS.get(entry["name"])
+        if kind is not None:
+            entry["launches"] += fleet["launches"][kind]
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       fleet["err"][kind])
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels += [{
         # B7 in bfloat16: the bfloat16 prefill steps' launches (zamba2-7b's

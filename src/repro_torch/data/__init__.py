@@ -1,3 +1,3 @@
-from .pipeline import DataConfig, make_batch, synthetic_batch_iter
+from .pipeline import DataConfig, input_specs, make_batch, synthetic_batch_iter
 
-__all__ = ["DataConfig", "make_batch", "synthetic_batch_iter"]
+__all__ = ["DataConfig", "input_specs", "make_batch", "synthetic_batch_iter"]

@@ -5,9 +5,9 @@
 in the same order as the reference, so both packages get identical tokens
 (and embeddings) for one seed and step.  For the embeddings-input families
 (vlm, audio) the modality frontend is a stub, as in the reference: the
-batch holds precomputed embeddings of the backbone's width.  The
-reference's ``input_specs`` (shape stand-ins for its AOT dry-run) has no
-counterpart here.
+batch holds precomputed embeddings of the backbone's width.
+``input_specs`` returns the same structure as meta-device tensors: shapes
+and dtypes without storage, the dry run's stand-ins.
 """
 from __future__ import annotations
 
@@ -31,6 +31,25 @@ def _token_shape(cfg: ModelConfig, batch: int, seq: int):
     if cfg.n_codebooks > 1:
         return (batch, seq, cfg.n_codebooks)
     return (batch, seq)
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape,
+                dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """Meta-device stand-ins for every model input of one (arch x shape)
+    cell: ``make_batch``'s names, shapes and dtypes (tokens int64)."""
+    B, S = shape.global_batch, shape.seq_len
+    B_, S_ = (B, 1) if shape.kind == "decode" else (B, S)
+    specs: Dict[str, torch.Tensor] = {}
+    if cfg.input_mode == "embeddings":
+        specs["embeddings"] = torch.empty((B_, S_, cfg.d_model), dtype=dtype,
+                                          device="meta")
+    else:
+        specs["tokens"] = torch.empty(_token_shape(cfg, B_, S_),
+                                      dtype=torch.int64, device="meta")
+    if shape.kind == "train":
+        specs["labels"] = torch.empty(_token_shape(cfg, B, S),
+                                      dtype=torch.int64, device="meta")
+    return specs
 
 
 def make_batch(cfg: ModelConfig, shape: InputShape, step: int = 0,

@@ -17,7 +17,9 @@ the JAX package's ``jax.custom_vjp``: its forward saves
 one kernel each.  The lengths get no gradient.  ``flash_attention``
 builds no autograd graph: on the card it raises when grad mode is on and
 an operand requires grad, rather than return a result cut off from the
-graph.
+graph.  Nor does it take a DTensor: a sharded model runs the plain
+``"torch"`` backend, and ``flash_attention`` raises rather than run on a
+DTensor's shards.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from typing import Optional
 import torch
 
 from ...obs.profiling import named_scope
+from .. import refuse_dtensors
 from . import kernel
 from .ref import flash_attention_ref, mha_bwd_ref, mha_fwd_ref
 
@@ -43,6 +46,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``kernel_launches`` under its kernel's name.  A CPU tensor
     takes the plain version."""
     named = {"q": q, "k": k, "v": v}
+    refuse_dtensors("flash_attention", "B7", named)
     shapes = {n: tuple(t.shape) for n, t in named.items()}
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: expected q (B, Sq, H, dh), k and "

@@ -9,7 +9,8 @@ them in the models' layout, strided, with no per-head copy of B and C.
 A tensor on the CPU goes through the plain version (``ref.ssd_plain``); a
 CUDA tensor launches the kernels or raises, never falling back.  B8
 builds no autograd graph: on the card it raises when grad mode is on and
-an operand requires grad.  On the card B8 is three launches
+an operand requires grad, and it takes no DTensor (a sharded model runs
+the plain ``"torch"`` backend).  On the card B8 is three launches
 (``kernel.PASSES``): ``ssd.launches`` counts the wrapper's calls and
 ``ssd.kernel_launches`` each pass's launches, counted by the pass.
 """
@@ -20,6 +21,7 @@ from typing import Optional
 import torch
 
 from ...obs.profiling import named_scope
+from .. import refuse_dtensors
 from . import kernel
 from .ref import prepare, ssd_plain
 
@@ -37,6 +39,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
     ``kernel.MAX_CHUNK``."""
     out_dtype = out_dtype or x.dtype
     named = {"x": x, "dt": dt, "dA": dA, "B": B, "C": C}
+    refuse_dtensors("ssd", "B8", named)
     shapes = {n: tuple(t.shape) for n, t in named.items()}
     if x.dim() != 4 or B.dim() != 4 or C.shape != B.shape \
             or dt.shape != x.shape[:3] or dA.shape != dt.shape:

@@ -22,7 +22,9 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from ..distributed.sharding import shard, tp_row_matmul
+from ..distributed.collectives import local_heads
+from ..distributed.sharding import (mesh_rules, shard, split_heads,
+                                    tp_row_matmul)
 from ..kernels.flash_attention import flash_attention
 from ..nn.backend import resolve_backend
 from ..obs.profiling import annotate
@@ -56,10 +58,12 @@ def attention_init(d_model: int, n_heads: int, n_kv_heads: int,
 
 def _project_qkv(params: Attention, x, n_heads, n_kv_heads, head_dim,
                  positions, rope_theta, rope_fraction):
-    B, S, _ = x.shape
-    q = (x @ params.wq).reshape(B, S, n_heads, head_dim)
-    k = (x @ params.wk).reshape(B, S, n_kv_heads, head_dim)
-    v = (x @ params.wv).reshape(B, S, n_kv_heads, head_dim)
+    wq = shard(params.wq, None, "heads")          # gather fsdp dim on use
+    wk = shard(params.wk, None, "kv_heads")
+    wv = shard(params.wv, None, "kv_heads")
+    q = split_heads(x @ wq, n_heads, head_dim, "heads")
+    k = split_heads(x @ wk, n_kv_heads, head_dim, "kv_heads")
+    v = split_heads(x @ wv, n_kv_heads, head_dim, "kv_heads")
     if rope_theta:
         q = apply_rope(q, positions, rope_theta, rope_fraction)
         k = apply_rope(k, positions, rope_theta, rope_fraction)
@@ -70,6 +74,10 @@ def _group_heads(q: torch.Tensor, n_kv_heads: int) -> torch.Tensor:
     """(B, S, H, dh) -> (B, S, KV, G, dh), splitting query heads into KV
     groups."""
     B, S, H, dh = q.shape
+    rules = mesh_rules()
+    if rules is not None and rules.resolve("kv_heads", n_kv_heads) is None:
+        # Heads sharded past the KV groups: a DTensor cannot split them.
+        q = shard(q, "batch", None, None, None)
     return q.reshape(B, S, n_kv_heads, H // n_kv_heads, dh)
 
 
@@ -139,15 +147,28 @@ def attention_apply(params: Attention, x, positions, *, n_heads, n_kv_heads,
                            positions, rope_theta, rope_fraction)
     with annotate("mrsch.lm.attention"):
         if S <= dense_threshold:
-            out = dense_attention(_group_heads(q, n_kv_heads), k, v,
-                                  causal=causal)
+            out = local_heads(dense_attention, _group_heads(q, n_kv_heads),
+                              k, v, causal=causal)
         elif resolve_backend(backend) == "kernel":
             out = flash_attention(q, k, v, causal=causal)
         else:
-            out = flash_attention_scan(_group_heads(q, n_kv_heads), k, v,
-                                       causal=causal)
+            out = local_heads(flash_attention_scan,
+                              _group_heads(q, n_kv_heads), k, v,
+                              causal=causal)
     out = out.reshape(B, S, n_heads * head_dim)
-    return shard(tp_row_matmul(out, params.wo), "batch", "act_seq", None)
+    return shard(tp_row_matmul(out, shard(params.wo, "heads", None)),
+                 "batch", "act_seq", None)
+
+
+def _decode_core(qg, cache_k, cache_v, pos: int):
+    """One query row (B, 1, KV, G, dh) over the cache's positions <= pos."""
+    scale = qg.shape[-1] ** -0.5
+    s = torch.einsum("bskgd,btkd->bkgst", qg,
+                     cache_k.to(qg.dtype)).float() * scale
+    tpos = torch.arange(cache_k.shape[1], device=qg.device)
+    s = torch.where(tpos <= pos, s, NEG_INF)
+    w = torch.softmax(s, dim=-1).to(qg.dtype)
+    return torch.einsum("bkgst,btkd->bskgd", w, cache_v.to(qg.dtype))
 
 
 def decode_attention_apply(params: Attention, x, cache_k, cache_v, pos: int,
@@ -165,13 +186,8 @@ def decode_attention_apply(params: Attention, x, cache_k, cache_v, pos: int,
                            positions, rope_theta, rope_fraction)
     cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
     cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
-    qg = _group_heads(q, n_kv_heads)                        # (B,1,KV,G,dh)
-    scale = head_dim ** -0.5
-    s = torch.einsum("bskgd,btkd->bkgst", qg,
-                     cache_k.to(qg.dtype)).float() * scale
-    tpos = torch.arange(cache_k.shape[1], device=x.device)
-    s = torch.where(tpos <= pos, s, NEG_INF)
-    w = torch.softmax(s, dim=-1).to(qg.dtype)
-    out = torch.einsum("bkgst,btkd->bskgd", w, cache_v.to(qg.dtype))
-    out = out.reshape(B, 1, n_heads * head_dim) @ params.wo
-    return out, cache_k, cache_v
+    out = local_heads(_decode_core, _group_heads(q, n_kv_heads), cache_k,
+                      cache_v, pos=pos)
+    out = out.reshape(B, 1, n_heads * head_dim) @ shard(params.wo, "heads",
+                                                        None)
+    return shard(out, "batch", None, None), cache_k, cache_v

@@ -21,6 +21,8 @@ import torch
 from torch import nn
 
 from ..distributed.sharding import shard as _shard
+from ..distributed.collectives import embed_rows as _embed_rows
+from ..distributed.collectives import take_last as _take_last
 from ..distributed.sharding import tp_row_matmul as _tp_row
 
 
@@ -111,7 +113,8 @@ def embedding_init(vocab: int, d: int, dtype, *, generator,
 
 
 def embedding_lookup(params: Embedding, tokens: torch.Tensor):
-    return _shard(params.table[tokens], "batch", None, None)
+    table = _shard(params.table, "vocab", None)       # gather fsdp dim
+    return _shard(_embed_rows(table, tokens), "batch", None, None)
 
 
 def _softcap(logits: torch.Tensor, softcap: float) -> torch.Tensor:
@@ -120,7 +123,9 @@ def _softcap(logits: torch.Tensor, softcap: float) -> torch.Tensor:
 
 def unembed(params: Embedding, x: torch.Tensor, softcap: float = 0.0):
     """Logits through the tied embedding table, float32."""
-    return _softcap((x @ params.table.t()).float(), softcap)
+    table = _shard(params.table, "vocab", None)
+    return _shard(_softcap((x @ table.t()).float(), softcap),
+                  "batch", "act_seq", "vocab")
 
 
 class LMHead(nn.Module):
@@ -140,7 +145,8 @@ def lm_head_init(d: int, vocab: int, dtype, *, generator,
 
 
 def lm_head_apply(params: LMHead, x: torch.Tensor, softcap: float = 0.0):
-    return _softcap((x @ params.w).float(), softcap)
+    logits = _softcap((x @ _shard(params.w, None, "vocab")).float(), softcap)
+    return _shard(logits, "batch", "act_seq", "vocab")
 
 
 # ----------------------------------------------------------------- ffn
@@ -176,12 +182,18 @@ def _act(name: str):
 
 
 def ffn_apply(params: FFN, x: torch.Tensor, act: str, glu: bool):
-    up = x @ params.w_up
+    # ZeRO-3 "gather-on-use": weights are stored fsdp-sharded over data;
+    # the use-site layout (None, mlp) gathers the weight instead of
+    # partial-sum reducing the (B, S, F) activation.
+    up = _shard(x @ _shard(params.w_up, None, "mlp"), "batch", None, "mlp")
     if glu:
-        h = _act(act)(x @ params.w_gate) * up
+        gate = _shard(x @ _shard(params.w_gate, None, "mlp"),
+                      "batch", None, "mlp")
+        h = _act(act)(gate) * up
     else:
         h = _act(act)(up)
-    return _tp_row(h, params.w_down)
+    out = _tp_row(h, _shard(params.w_down, "mlp", None))
+    return _shard(out, "batch", "act_seq", None)
 
 
 # ----------------------------------------------------------------- losses
@@ -190,7 +202,7 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """logits (B, S, V), labels (B, S) -> scalar mean nll, float32."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    gold = _take_last(logits, labels.long())
     nll = logz - gold
     if mask is not None:
         return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import SSMConfig
+from ..distributed.collectives import local_parallel
 from ..distributed.sharding import shard
 from ..kernels.ssd import ssd
 from ..nn.backend import resolve_backend
@@ -142,6 +143,15 @@ def _ssd_chunked(xh, dt, dA, B_, C_, chunk: int) -> torch.Tensor:
     return y.reshape(B, S, H, P)
 
 
+def _ssd_padded(xh, dt, dA, B_, C_, chunk: int) -> torch.Tensor:
+    """``_ssd_chunked`` of a sequence padded to a chunk multiple (appended
+    steps are causal-safe), as the reference pads it."""
+    S = xh.shape[1]
+    pad = (-S) % chunk
+    return _ssd_chunked(*(F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                          for t in (xh, dt, dA, B_, C_)), chunk)[:, :S]
+
+
 def mamba2_apply(params: Mamba2, u: torch.Tensor, cfg: SSMConfig, *,
                  backend: str = "kernel") -> torch.Tensor:
     """Full-sequence SSD block.  u (B, S, D) -> (B, S, D)."""
@@ -149,10 +159,14 @@ def mamba2_apply(params: Mamba2, u: torch.Tensor, cfg: SSMConfig, *,
     d_in = cfg.expand * D
     H = d_in // cfg.head_dim
     gn = cfg.n_groups * cfg.d_state
-    z = u @ params.w_z
-    xBC = torch.cat([u @ params.w_x, u @ params.w_B, u @ params.w_C], dim=-1)
-    xBC = F.silu(_causal_conv(xBC, params.conv))
-    x = xBC[..., :d_in]
+    z = u @ shard(params.w_z, None, "heads")
+    xBC = torch.cat([u @ shard(params.w_x, None, "heads"),
+                     u @ shard(params.w_B, None, None),
+                     u @ shard(params.w_C, None, None)], dim=-1)
+    # The conv is parallel over the batch and the channels.
+    xBC = F.silu(local_parallel(_causal_conv, (xBC, params.conv),
+                                ((0, 2), (None, 1)), (0, 2)))
+    x = shard(xBC[..., :d_in], "batch", None, "heads")
     B_ = xBC[..., d_in: d_in + gn].reshape(B, S, cfg.n_groups, cfg.d_state)
     C_ = xBC[..., d_in + gn:].reshape(B, S, cfg.n_groups, cfg.d_state)
     dt = F.softplus((u @ params.w_dt).float() + params.dt_bias.float())
@@ -163,16 +177,18 @@ def mamba2_apply(params: Mamba2, u: torch.Tensor, cfg: SSMConfig, *,
         # B8 takes the sequence unpadded and B_, C_ by group.
         y = ssd(xh, dt, dA, B_, C_, chunk=cfg.chunk, out_dtype=torch.float32)
     else:
-        # Pad the sequence to a chunk multiple (appended steps are causal-
-        # safe), as the reference does.
-        pad = (-S) % cfg.chunk
-        y = _ssd_chunked(*(F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
-                           for t in (xh, dt, dA, B_, C_)), cfg.chunk)[:, :S]
+        # Parallel over the batch and, when one group serves every head,
+        # the heads: on each rank's shards under mesh rules.
+        heads = 2 if cfg.n_groups == 1 else None
+        y = local_parallel(_ssd_padded, (xh, dt, dA, B_, C_),
+                           ((0, heads),) * 3 + ((0, None),) * 2, (0, heads),
+                           chunk=cfg.chunk)
     y = y + params.D[None, None, :, None] * xh.float()
     y = y.reshape(B, S, d_in).to(u.dtype)
     y = y * F.silu(z)
     y = rmsnorm(params.norm, y)
-    return shard(y @ params.out_proj, "batch", "act_seq", None)
+    return shard(y @ shard(params.out_proj, "heads", None),
+                 "batch", "act_seq", None)
 
 
 def mamba2_decode_init_cache(batch: int, d_model: int, cfg: SSMConfig, dtype,
@@ -188,6 +204,14 @@ def mamba2_decode_init_cache(batch: int, d_model: int, cfg: SSMConfig, dtype,
         "conv": torch.zeros(batch, cfg.conv_width - 1, d_in + 2 * gn,
                             dtype=dtype, device=device),
     }
+
+
+def _recurrent_step(state, dt, dA, Bh, Ch, x):
+    """One step of the SSM recurrence per head: state (B, H, P, N) decays
+    by exp(dA) and takes dt B x^T; y (B, H, P) reads it with C."""
+    state = state * torch.exp(dA)[..., None, None] + torch.einsum(
+        "bh,bhn,bhp->bhpn", dt, Bh.float(), x.float())
+    return state, torch.einsum("bhpn,bhn->bhp", state, Ch.float())
 
 
 def mamba2_decode_apply(params: Mamba2, u: torch.Tensor, cache: dict,
@@ -216,13 +240,13 @@ def mamba2_decode_apply(params: Mamba2, u: torch.Tensor, cache: dict,
     dt = F.softplus((u[:, 0] @ params.w_dt).float()
                     + params.dt_bias.float())
     A = -torch.exp(params.A_log)
-    a = torch.exp(dt * A)                                   # (B, H)
-    state = cache["state"] * a[..., None, None] + torch.einsum(
-        "bh,bhn,bhp->bhpn", dt, Bh.float(), x.float())
-    y = torch.einsum("bhpn,bhn->bhp", state, Ch.float())
+    # Parallel over the batch (dim 0) and the heads (dim 1).
+    state, y = local_parallel(
+        _recurrent_step, (cache["state"], dt, dt * A, Bh, Ch, x),
+        ((0, 1),) * 6, ((0, 1), (0, 1)))
     y = y + params.D[None, :, None] * x.float()
     y = y.reshape(B, 1, d_in).to(u.dtype) * F.silu(z)
     y = rmsnorm(params.norm, y)
     cache["state"].copy_(state)
     cache["conv"].copy_(window[:, 1:])
-    return y @ params.out_proj, cache
+    return shard(y @ params.out_proj, "batch", None, None), cache

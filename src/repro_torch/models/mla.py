@@ -27,6 +27,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import MLAConfig
+from ..distributed.collectives import local_heads
+from ..distributed.sharding import shard, split_heads, tp_row_matmul
 from ..kernels.flash_attention import flash_attention
 from ..nn.backend import resolve_backend
 from ..obs.profiling import annotate
@@ -67,20 +69,20 @@ class MLA(nn.Module):
 
 
 def _queries(params: MLA, x, n_heads: int, mla: MLAConfig, positions):
-    B, S, _ = x.shape
     qk_head = mla.qk_nope_head_dim + mla.qk_rope_head_dim
+    w_uq = shard(params.w_uq, None, "heads")
     if mla.q_lora_rank:
-        cq = rmsnorm(params.q_norm, x @ params.w_dq)
-        q = (cq @ params.w_uq).reshape(B, S, n_heads, qk_head)
+        cq = rmsnorm(params.q_norm, x @ shard(params.w_dq, None, None))
+        q = split_heads(cq @ w_uq, n_heads, qk_head, "heads")
     else:
-        q = (x @ params.w_uq).reshape(B, S, n_heads, qk_head)
+        q = split_heads(x @ w_uq, n_heads, qk_head, "heads")
     q_nope = q[..., : mla.qk_nope_head_dim]
     q_rope = apply_rope(q[..., mla.qk_nope_head_dim:], positions, ROPE_THETA)
     return q_nope, q_rope
 
 
 def _compressed_kv(params: MLA, x, mla: MLAConfig, positions):
-    ckv = x @ params.w_dkv
+    ckv = x @ shard(params.w_dkv, None, None)
     c = rmsnorm(params.kv_norm, ckv[..., : mla.kv_lora_rank])
     k_rope = ckv[..., mla.kv_lora_rank:][:, :, None, :]       # (B, S, 1, rope)
     k_rope = apply_rope(k_rope, positions, ROPE_THETA)[:, :, 0]
@@ -96,24 +98,28 @@ def mla_apply(params: MLA, x, positions, *, n_heads: int, mla: MLAConfig,
     B, S, _ = x.shape
     q_nope, q_rope = _queries(params, x, n_heads, mla, positions)
     c, k_rope = _compressed_kv(params, x, mla, positions)
-    k_nope = (c @ params.w_uk).reshape(B, S, n_heads, mla.qk_nope_head_dim)
-    v = (c @ params.w_uv).reshape(B, S, n_heads, mla.v_head_dim)
+    k_nope = split_heads(c @ shard(params.w_uk, None, "heads"), n_heads,
+                         mla.qk_nope_head_dim, "heads")
+    v = split_heads(c @ shard(params.w_uv, None, "heads"), n_heads,
+                    mla.v_head_dim, "heads")
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, n_heads, mla.qk_rope_head_dim)], dim=-1)
     with annotate("mrsch.lm.attention"):
         if S <= dense_threshold:
             # Grouped layout with KV == heads (MLA decompresses per head).
-            out = dense_attention(q[:, :, :, None, :], k, v, causal=True)
+            out = local_heads(dense_attention, q[:, :, :, None, :], k, v,
+                              causal=True)
         elif resolve_backend(backend) == "kernel":
             pad = q.shape[-1] - mla.v_head_dim
             out = flash_attention(q, k, F.pad(v, (0, pad)),
                                   causal=True)[..., : mla.v_head_dim]
         else:
-            out = flash_attention_scan(q[:, :, :, None, :], k, v,
-                                       causal=True)
+            out = local_heads(flash_attention_scan, q[:, :, :, None, :], k,
+                              v, causal=True)
     out = out.reshape(B, S, n_heads * mla.v_head_dim)
-    return out @ params.wo
+    return shard(tp_row_matmul(out, shard(params.wo, "heads", None)),
+                 "batch", "act_seq", None)
 
 
 def mla_decode_apply(params: MLA, x, cache_c, cache_rope, pos: int, *,
@@ -146,4 +152,4 @@ def mla_decode_apply(params: MLA, x, cache_c, cache_rope, pos: int, *,
     ctx = torch.einsum("bht,btl->bhl", w, cache_c.to(x.dtype))
     w_uv = params.w_uv.reshape(mla.kv_lora_rank, n_heads, mla.v_head_dim)
     out = torch.einsum("bhl,lhv->bhv", ctx, w_uv).reshape(B, 1, -1)
-    return out @ params.wo, cache_c, cache_rope
+    return shard(out @ params.wo, "batch", None, None), cache_c, cache_rope

@@ -40,7 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import shard
+from ..distributed.sharding import shard, split_heads
 from ..obs.profiling import annotate
 from . import attention as attn
 from . import mamba2 as ssd
@@ -94,10 +94,13 @@ def _block_apply(params: Block, cfg: ModelConfig, kind: str, x, positions,
     """One layer, inside its profiler range (``mrsch.lm.block``; under
     remat the range opens again for the backward's recompute)."""
     with annotate("mrsch.lm.block"):
+        # Sequence-parallel residual stream under "opt" rules (S over
+        # model); no-op under baseline rules or when S doesn't divide.
+        x = shard(x, "batch", "act_seq", None)
         if kind == "ssm":
-            return x + ssd.mamba2_apply(
+            return shard(x + ssd.mamba2_apply(
                 params.ssm, rmsnorm(params.norm1, x, cfg.norm_eps), cfg.ssm,
-                backend=backend)
+                backend=backend), "batch", "act_seq", None)
         h = rmsnorm(params.norm1, x, cfg.norm_eps)
         if cfg.mla is not None:
             a = mla_mod.mla_apply(params.mla, h, positions,
@@ -111,9 +114,10 @@ def _block_apply(params: Block, cfg: ModelConfig, kind: str, x, positions,
                                      rope_theta=cfg.rope_theta,
                                      rope_fraction=cfg.rope_fraction,
                                      backend=backend)
-        x = x + a
-        return x + _ffn(params, cfg, kind,
-                        rmsnorm(params.norm2, x, cfg.norm_eps))
+        x = shard(x + a, "batch", "act_seq", None)
+        return shard(x + _ffn(params, cfg, kind,
+                              rmsnorm(params.norm2, x, cfg.norm_eps)),
+                     "batch", "act_seq", None)
 
 
 def _ffn(params: Block, cfg: ModelConfig, kind: str, h):
@@ -131,9 +135,10 @@ def _shared_block_apply(params: SharedBlock, cfg: ModelConfig, x, positions,
                              n_kv_heads=hcfg.shared_n_kv_heads,
                              head_dim=cfg.d_model // hcfg.shared_n_heads,
                              rope_theta=cfg.rope_theta, backend=backend)
-    x = x + a
+    x = shard(x + a, "batch", "act_seq", None)
     h = rmsnorm(params.norm2, x, cfg.norm_eps)
-    return x + ffn_apply(params.shared, h, cfg.act, cfg.glu)
+    return shard(x + ffn_apply(params.shared, h, cfg.act, cfg.glu),
+                 "batch", "act_seq", None)
 
 
 # ------------------------------------------------------------------ stacks
@@ -255,8 +260,8 @@ def _logits(params: LM, cfg: ModelConfig, x):
         return unembed(params.embed, x, cfg.logit_softcap)
     logits = lm_head_apply(params.lm_head, x, cfg.logit_softcap)
     if cfg.n_codebooks > 1:
-        B, S, _ = logits.shape
-        logits = logits.reshape(B, S, cfg.n_codebooks, cfg.vocab_size)
+        logits = split_heads(logits, cfg.n_codebooks, cfg.vocab_size,
+                             "vocab", seq_axis="act_seq")
     return logits
 
 
@@ -388,9 +393,10 @@ def _decode_shared_block(params: SharedBlock, cfg: ModelConfig, x, kcache,
         n_kv_heads=hcfg.shared_n_kv_heads,
         head_dim=cfg.d_model // hcfg.shared_n_heads,
         rope_theta=cfg.rope_theta)
-    x = x + a
+    x = shard(x + a, "batch", "act_seq", None)
     h = rmsnorm(params.norm2, x, cfg.norm_eps)
-    return x + ffn_apply(params.shared, h, cfg.act, cfg.glu)
+    return shard(x + ffn_apply(params.shared, h, cfg.act, cfg.glu),
+                 "batch", "act_seq", None)
 
 
 @torch.no_grad()
