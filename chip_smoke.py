@@ -244,9 +244,12 @@ prints its wall seconds:
    group and ``make_host_mesh()``; (b) gemma-2b at full width, 2 layers,
    float32, one ``make_train_step`` under ``default_rules`` (DTensor
    parameters, state and batch) against the same step without rules,
-   every parameter within 1e-6 relative, both timed; (c)
+   every parameter within 1e-6 relative, both timed, and one step under
+   each sequence-parallel rule set (``opt``, ``serve``) bit-equal to it;
+   (c) its prefill step and one decode step from a filled cache under
+   ``serve_rules``, bit-equal to the steps without rules; (d)
    deepseek-v2-lite-16b's MoE layer at full width (64 experts) through
-   ``_moe_small_t`` under ``serve_rules`` against the no-mesh layer; (d)
+   ``_moe_small_t`` under ``serve_rules`` against the no-mesh layer; (e)
    ``python -m repro_torch.launch.dryrun`` for gemma-2b x prefill_32k and
    deepseek-v2-lite-16b x decode_32k on the 16 x 16 mesh (a fake world
    of 256 ranks, no card), each record ``ok`` and printed.
@@ -4564,9 +4567,10 @@ MESH_SEQ, MESH_BATCH = 1024, 2
 MOE_TOKENS = (8, 16)                     # B, S: small T (<= 4096)
 
 
-def mesh_train_step(cfg, batch, mesh, sharded: bool, reps: int = 3):
-    """One gemma-2b step from seed-0 weights, with or without the rules;
-    returns (parameters after the first step, loss, step walls)."""
+def mesh_train_step(cfg, batch, mesh, rules_fn=None, reps: int = 3):
+    """One gemma-2b step from seed-0 weights, under the rules
+    ``rules_fn(mesh)`` or without rules (None); returns (parameters after
+    the first step, loss, step walls)."""
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch import steps
     from repro_torch.models import transformer
@@ -4577,8 +4581,9 @@ def mesh_train_step(cfg, batch, mesh, sharded: bool, reps: int = 3):
         generator=torch.Generator("cuda").manual_seed(0))
     state = opt_init(params, opt)
     fn = steps.make_train_step(cfg, opt)
+    sharded = rules_fn is not None
     if sharded:
-        rules = sh.default_rules(mesh)
+        rules = rules_fn(mesh)
         pspecs = sh.param_pspecs(params, rules)
         state = sh.distribute_tree(
             state, steps.param_pspecs_for_opt(state, pspecs), mesh)
@@ -4611,6 +4616,7 @@ def phase_mesh() -> dict:
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import InputShape
     from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed import sharding as sh
     from repro_torch.launch.mesh import make_host_mesh
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -4624,8 +4630,8 @@ def phase_mesh() -> dict:
             cfg = replace(get_config("gemma-2b"), n_layers=2)
             batch = make_batch(cfg, InputShape("t", MESH_SEQ, MESH_BATCH,
                                                "train"), 0)
-            p0, l0, w0 = mesh_train_step(cfg, batch, mesh, False)
-            p1, l1, w1 = mesh_train_step(cfg, batch, mesh, True)
+            p0, l0, w0 = mesh_train_step(cfg, batch, mesh)
+            p1, l1, w1 = mesh_train_step(cfg, batch, mesh, sh.default_rules)
             rel = max(float((p1[n] - p0[n]).abs().max()
                             / p0[n].abs().max().clamp_min(1e-30))
                       for n in p0)
@@ -4638,8 +4644,22 @@ def phase_mesh() -> dict:
                 f"{statistics.median(w0[1:]) * 1e3:.2f} ms, sharded "
                 f"{statistics.median(w1[1:]) * 1e3:.2f} ms (walls "
                 f"{[round(w, 4) for w in w0]} / {[round(w, 4) for w in w1]})")
-            del p0, p1
+            del p1
             free_cuda()
+            # Sequence parallelism: act_seq and kv_seq over "model".
+            for name in ("opt", "serve"):
+                p2, l2, _ = mesh_train_step(cfg, batch, mesh,
+                                            sh.RULE_SETS[name], reps=1)
+                same = l2 == l0 and all(torch.equal(p2[n], p0[n])
+                                        for n in p0)
+                assert same, f"the step under {name} rules is not the plain one"
+                log(f"[mesh] gemma-2b 2 layers one step under {name} rules "
+                    f"(act_seq over model): bit-equal to the plain step, "
+                    f"loss {l2!r}")
+                del p2
+                free_cuda()
+            del p0
+            out["serve"] = mesh_serve(cfg, mesh)
             out["moe"] = mesh_moe(mesh)
         finally:
             dist.destroy_process_group()
@@ -4647,8 +4667,52 @@ def phase_mesh() -> dict:
     return out
 
 
+def mesh_serve(cfg, mesh) -> dict:
+    """Phase 26(c): gemma-2b's prefill step and one decode step under
+    ``serve_rules`` (the residual stream's sequence and the cache's
+    positions over "model"; the decode from a cache filled before its
+    position) against the same steps without rules, bit for bit."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = transformer.init_params(cfg, dtype=torch.float32, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (MESH_BATCH, MESH_SEQ),
+                           generator=gen, device="cuda")
+    pos = MESH_SEQ // 2 + 1
+    cache = transformer.init_cache(cfg, MESH_BATCH, MESH_SEQ, torch.float32)
+    for leaf in cache["stack"].values():
+        leaf[:, :, :pos].normal_(generator=gen)
+    plain_cache = {"stack": {k: t.clone() for k, t in cache["stack"].items()}}
+    prefill = steps.make_prefill_step(cfg, backend="torch")
+    decode = steps.make_decode_step(cfg)
+    batch, token = {"tokens": tokens}, {"tokens": tokens[:, :1]}
+    want_p = prefill(params, batch)
+    want_d, _ = decode(params, token, plain_cache, pos)
+    rules = sh.serve_rules(mesh)
+    sh.distribute_params(params, rules, sh.param_pspecs(params, rules))
+    batch, token = (sh.distribute_tree(b, steps.batch_pspec(rules, b), mesh)
+                    for b in (batch, token))
+    cache = sh.distribute_tree(cache, steps.cache_pspecs(cache, rules), mesh)
+    got_p = steps._bind_rules(prefill, rules)(params, batch).full_tensor()
+    got_d, _ = steps._bind_rules(decode, rules)(params, token, cache, pos)
+    got_d = got_d.full_tensor()
+    assert torch.equal(got_p, want_p), "prefill under serve rules differs"
+    assert torch.equal(got_d, want_d), "decode under serve rules differs"
+    log(f"[mesh] gemma-2b 2 layers prefill B={MESH_BATCH} S={MESH_SEQ} "
+        f"under serve rules: last logits bit-equal to the plain step "
+        f"(largest {float(want_p.abs().max())!r})")
+    log(f"[mesh] gemma-2b 2 layers decode at position {pos} of a cache of "
+        f"{MESH_SEQ} under serve rules (its positions over model): logits "
+        f"bit-equal to the plain step (largest {float(want_d.abs().max())!r})")
+    del params, cache, plain_cache
+    free_cuda()
+    return {"prefill_max": float(want_p.abs().max()),
+            "decode_max": float(want_d.abs().max())}
+
+
 def mesh_moe(mesh) -> dict:
-    """Phase 26(c): deepseek-v2-lite-16b's MoE layer at full width through
+    """Phase 26(d): deepseek-v2-lite-16b's MoE layer at full width through
     ``_moe_small_t`` under ``serve_rules`` against the no-mesh layer."""
     from torch.distributed.tensor import distribute_tensor
 
@@ -4700,7 +4764,7 @@ DRYRUN_CELLS = (("gemma-2b", "prefill_32k"),
 
 
 def mesh_dryrun() -> dict:
-    """Phase 26(d): the dry run of two cells on a fake 16 x 16 world, each
+    """Phase 26(e): the dry run of two cells on a fake 16 x 16 world, each
     in a process of its own, the two at once; each record ``ok``,
     printed."""
     import tempfile

@@ -34,13 +34,15 @@ counts as replicated), which :func:`use_rules` turns on with the rules.
 from __future__ import annotations
 
 import threading
-from contextlib import ExitStack, contextmanager
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
+import torch
 from torch import nn
 
-from .collectives import from_local, grad_psum, mesh_group, to_local
+from .collectives import (from_local, grad_psum, local_parallel, mesh_group,
+                          to_local)
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
 
@@ -282,6 +284,46 @@ def tp_row_matmul(h, w, out_shard_axes=("batch", "act_seq", None)):
     return from_local(out, mesh, out_pl)
 
 
+def gather_seq(x):
+    """x (B, S, D) from the residual stream's layout ("batch", "act_seq",
+    None) to ("batch", None, None), the layout the column-parallel
+    products that read it take (q/k/v, MLA's down projections, the MLP's
+    gate and up, the MoE, Mamba2's input projections, the logits).
+
+    Under sequence parallelism (act_seq over mesh axes that divide S) this
+    is the Megatron-SP entry that GSPMD inserts for the reference: an
+    all-gather of the sequence over those axes, whose backward
+    reduce-scatters the gradient, which the column-parallel products
+    return partial over "model" (DTensor's redistribute does both).
+    Without it DTensor's ``mm`` meets the (B·S) dim flattened from a
+    batch and a sequence split on different mesh dims, a
+    ``_StridedShard`` that its strategy cannot take on a row or
+    contraction dim.  The identity when act_seq does not shard S (the
+    baseline rules, a one-token decode), on a plain tensor, and with no
+    rules on a ``DeviceMesh``."""
+    rules = mesh_rules()
+    if rules is None or rules.resolve("act_seq", x.shape[1]) is None:
+        return x
+    return shard(x, "batch", None, None)
+
+
+def seq_matmul(x, w):
+    """``x @ w`` for x (B, S, D) in the residual stream's layout and a
+    weight w (D, N) whose output keeps x's layout: the logits, which the
+    reference constrains to ("batch", "act_seq", "vocab").  Under
+    sequence parallelism "model" then lands on the sequence, not the
+    vocabulary, so each rank multiplies its slice of the sequence by the
+    whole weight (gathered; its gradient summed over the ranks that split
+    the tokens), which moves V·D numbers where gathering x and moving
+    the (B, S, V) logits onto the sequence would move B·S·V.  Otherwise
+    (act_seq not sharding S, a plain tensor, no rules) ``x @ w``."""
+    rules = mesh_rules()
+    if rules is None or rules.resolve("act_seq", x.shape[1]) is None:
+        return x @ w
+    return local_parallel(torch.matmul, (x, w), ((0, 1), (None, None)),
+                          (0, 1))
+
+
 _state = threading.local()
 
 
@@ -292,19 +334,25 @@ def current_rules() -> Optional[Rules]:
 @contextmanager
 def use_rules(rules: Optional[Rules]) -> Iterator[Optional[Rules]]:
     """Install ``rules`` for the block (and, on a ``DeviceMesh``, DTensor's
-    ``implicit_replication``: plain tensors that the models make count as
-    replicated)."""
+    implicit replication: plain tensors that the models make count as
+    replicated).  Both are restored to what they were, so a block nested
+    in another, as remat's recompute inside the backward, leaves its
+    caller's on: the replication flag is process-wide in some torch
+    releases, and ``implicit_replication()`` turns it off on exit."""
     prev = current_rules()
     _state.rules = rules
-    with ExitStack() as stack:
-        if rules is not None and _is_device_mesh(rules.mesh):
-            from torch.distributed.tensor.experimental import \
-                implicit_replication
-            stack.enter_context(implicit_replication())
-        try:
-            yield rules
-        finally:
-            _state.rules = prev
+    replicate = rules is not None and _is_device_mesh(rules.mesh)
+    if replicate:
+        from torch.distributed.tensor import DTensor
+        dispatcher = DTensor._op_dispatcher
+        was = dispatcher._allow_implicit_replication
+        dispatcher._allow_implicit_replication = True
+    try:
+        yield rules
+    finally:
+        _state.rules = prev
+        if replicate:
+            dispatcher._allow_implicit_replication = was
 
 
 def shard(x, *logical_axes):

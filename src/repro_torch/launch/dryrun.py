@@ -50,7 +50,13 @@ COUNTER = ("torch dispatch on a fake world, as rank 0: flops by "
 
 def fake_world(n_ranks: int) -> None:
     """A ``"fake"`` process group of ``n_ranks`` in this process, rank 0
-    (an initialised world of another size is torn down first)."""
+    (an initialised world of another size is torn down first), with
+    DTensor's sharding-propagation caches emptied: a cached spec keeps the
+    mesh it was made on, and the mesh of an earlier cell compares equal to
+    this cell's, so an op would be handed the earlier mesh, and with it
+    process groups of a world that is gone."""
+    from torch.distributed.tensor import debug
+    debug._clear_sharding_prop_cache()
     if dist.is_initialized():
         if dist.get_world_size() == n_ranks and dist.get_backend() == "fake":
             return

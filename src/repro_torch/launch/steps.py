@@ -32,6 +32,7 @@ from ..configs.base import ModelConfig
 from ..configs.shapes import InputShape
 from ..convert import is_stacked, nest
 from ..data.pipeline import input_specs
+from ..distributed.collectives import last_row
 from ..distributed.sharding import (P, PartitionSpec, Rules,
                                     distribute_params, distribute_tree,
                                     param_pspecs, use_rules)
@@ -158,7 +159,7 @@ def make_prefill_step(cfg: ModelConfig, backend: str = "kernel"
                      batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         with _no_graph(params):
             logits = transformer.forward(params, cfg, batch, backend=backend)
-            return logits[:, -1]
+            return last_row(logits)
 
     return prefill_step
 

@@ -22,9 +22,10 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from ..distributed.collectives import local_heads
-from ..distributed.sharding import (mesh_rules, shard, split_heads,
-                                    tp_row_matmul)
+from ..distributed.collectives import (attend_upto, local_heads,
+                                       local_parallel, write_pos)
+from ..distributed.sharding import (gather_seq, mesh_rules, shard,
+                                    split_heads, tp_row_matmul)
 from ..kernels.flash_attention import flash_attention
 from ..nn.backend import resolve_backend
 from ..obs.profiling import annotate
@@ -58,6 +59,7 @@ def attention_init(d_model: int, n_heads: int, n_kv_heads: int,
 
 def _project_qkv(params: Attention, x, n_heads, n_kv_heads, head_dim,
                  positions, rope_theta, rope_fraction):
+    x = gather_seq(x)                             # one gather for q, k, v
     wq = shard(params.wq, None, "heads")          # gather fsdp dim on use
     wk = shard(params.wk, None, "kv_heads")
     wv = shard(params.wv, None, "kv_heads")
@@ -160,15 +162,17 @@ def attention_apply(params: Attention, x, positions, *, n_heads, n_kv_heads,
                  "batch", "act_seq", None)
 
 
-def _decode_core(qg, cache_k, cache_v, pos: int):
-    """One query row (B, 1, KV, G, dh) over the cache's positions <= pos."""
+def _decode_core(qg, cache_k, cache_v, pos: int, seq_lo: int = 0,
+                 seq_group=None):
+    """One query row (B, 1, KV, G, dh) over the cache's positions <= pos.
+    The cache holds positions ``seq_lo`` on; the ranks of ``seq_group``
+    hold the others, and the softmax and the weighted sum are finished
+    across them."""
     scale = qg.shape[-1] ** -0.5
     s = torch.einsum("bskgd,btkd->bkgst", qg,
                      cache_k.to(qg.dtype)).float() * scale
-    tpos = torch.arange(cache_k.shape[1], device=qg.device)
-    s = torch.where(tpos <= pos, s, NEG_INF)
-    w = torch.softmax(s, dim=-1).to(qg.dtype)
-    return torch.einsum("bkgst,btkd->bskgd", w, cache_v.to(qg.dtype))
+    return attend_upto(s, cache_v.to(qg.dtype), "bkgst,btkd->bskgd", pos,
+                       seq_lo, seq_group)
 
 
 def decode_attention_apply(params: Attention, x, cache_k, cache_v, pos: int,
@@ -184,10 +188,13 @@ def decode_attention_apply(params: Attention, x, cache_k, cache_v, pos: int,
     positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
     q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim,
                            positions, rope_theta, rope_fraction)
-    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
-    out = local_heads(_decode_core, _group_heads(q, n_kv_heads), cache_k,
-                      cache_v, pos=pos)
+    write_pos(cache_k, pos, k[:, 0])
+    write_pos(cache_v, pos, v[:, 0])
+    # Parallel over the batch and the KV heads, and over the cache's
+    # positions where the rules shard them.
+    out = local_parallel(_decode_core, (_group_heads(q, n_kv_heads), cache_k,
+                                        cache_v), ((0, 2),) * 3, (0, 2),
+                         split=(None, 1, 1), pos=pos)
     out = out.reshape(B, 1, n_heads * head_dim) @ shard(params.wo, "heads",
                                                         None)
     return shard(out, "batch", None, None), cache_k, cache_v

@@ -22,7 +22,11 @@ from torch import nn
 
 from ..distributed.sharding import shard as _shard
 from ..distributed.collectives import embed_rows as _embed_rows
+from ..distributed.collectives import mean_last as _mean_last
+from ..distributed.collectives import replicated_on as _replicated_on
 from ..distributed.collectives import take_last as _take_last
+from ..distributed.sharding import gather_seq as _gather_seq
+from ..distributed.sharding import seq_matmul as _seq_matmul
 from ..distributed.sharding import tp_row_matmul as _tp_row
 
 
@@ -61,7 +65,7 @@ def rmsnorm_init(d: int, dtype, device=None) -> RMSNorm:
 
 def rmsnorm(params: RMSNorm, x: torch.Tensor, eps: float = 1e-5):
     xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
+    var = _mean_last(xf * xf)
     y = xf * torch.rsqrt(var + eps)
     return (y * params.scale.float()).to(x.dtype)
 
@@ -84,8 +88,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     if rot == 0:
         return x
     ang = positions[..., :, None].float() * inv             # (..., S, rot/2)
-    cos = torch.cos(ang)[..., :, None, :]
-    sin = torch.sin(ang)[..., :, None, :]
+    # On a sharded x the angles join its mesh as replicated DTensors, so
+    # the backward needs no implicit replication.
+    cos = _replicated_on(torch.cos(ang)[..., :, None, :], x)
+    sin = _replicated_on(torch.sin(ang)[..., :, None, :], x)
     xr = x[..., :rot].float()
     x1, x2 = xr[..., 0::2], xr[..., 1::2]
     y1 = x1 * cos - x2 * sin
@@ -124,7 +130,7 @@ def _softcap(logits: torch.Tensor, softcap: float) -> torch.Tensor:
 def unembed(params: Embedding, x: torch.Tensor, softcap: float = 0.0):
     """Logits through the tied embedding table, float32."""
     table = _shard(params.table, "vocab", None)
-    return _shard(_softcap((x @ table.t()).float(), softcap),
+    return _shard(_softcap(_seq_matmul(x, table.t()).float(), softcap),
                   "batch", "act_seq", "vocab")
 
 
@@ -145,7 +151,8 @@ def lm_head_init(d: int, vocab: int, dtype, *, generator,
 
 
 def lm_head_apply(params: LMHead, x: torch.Tensor, softcap: float = 0.0):
-    logits = _softcap((x @ _shard(params.w, None, "vocab")).float(), softcap)
+    logits = _softcap(_seq_matmul(x, _shard(params.w, None, "vocab")).float(),
+                      softcap)
     return _shard(logits, "batch", "act_seq", "vocab")
 
 
@@ -185,6 +192,7 @@ def ffn_apply(params: FFN, x: torch.Tensor, act: str, glu: bool):
     # ZeRO-3 "gather-on-use": weights are stored fsdp-sharded over data;
     # the use-site layout (None, mlp) gathers the weight instead of
     # partial-sum reducing the (B, S, F) activation.
+    x = _gather_seq(x)
     up = _shard(x @ _shard(params.w_up, None, "mlp"), "batch", None, "mlp")
     if glu:
         gate = _shard(x @ _shard(params.w_gate, None, "mlp"),

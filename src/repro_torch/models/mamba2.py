@@ -20,7 +20,7 @@ from torch import nn
 
 from ..configs.base import SSMConfig
 from ..distributed.collectives import local_parallel
-from ..distributed.sharding import shard
+from ..distributed.sharding import gather_seq, shard
 from ..kernels.ssd import ssd
 from ..nn.backend import resolve_backend
 from .layers import RMSNorm, _init_dense, _normal, empty_param, rmsnorm
@@ -159,6 +159,7 @@ def mamba2_apply(params: Mamba2, u: torch.Tensor, cfg: SSMConfig, *,
     d_in = cfg.expand * D
     H = d_in // cfg.head_dim
     gn = cfg.n_groups * cfg.d_state
+    u = gather_seq(u)                  # one gather for the five projections
     z = u @ shard(params.w_z, None, "heads")
     xBC = torch.cat([u @ shard(params.w_x, None, "heads"),
                      u @ shard(params.w_B, None, None),

@@ -27,8 +27,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import MLAConfig
-from ..distributed.collectives import local_heads
-from ..distributed.sharding import shard, split_heads, tp_row_matmul
+from ..distributed.collectives import (attend_upto, local_heads,
+                                       local_parallel, write_pos)
+from ..distributed.sharding import (gather_seq, shard, split_heads,
+                                    tp_row_matmul)
 from ..kernels.flash_attention import flash_attention
 from ..nn.backend import resolve_backend
 from ..obs.profiling import annotate
@@ -96,6 +98,7 @@ def mla_apply(params: MLA, x, positions, *, n_heads: int, mla: MLAConfig,
     attention core runs inside the profiler range ``mrsch.lm.attention``,
     as ``attention_apply``'s does."""
     B, S, _ = x.shape
+    x = gather_seq(x)                 # one gather for the down projections
     q_nope, q_rope = _queries(params, x, n_heads, mla, positions)
     c, k_rope = _compressed_kv(params, x, mla, positions)
     k_nope = split_heads(c @ shard(params.w_uk, None, "heads"), n_heads,
@@ -122,6 +125,20 @@ def mla_apply(params: MLA, x, positions, *, n_heads: int, mla: MLAConfig,
                  "batch", "act_seq", None)
 
 
+def _absorbed_core(q_abs, q_rope, cache_c, cache_rope, pos: int,
+                   scale: float, seq_lo: int = 0, seq_group=None):
+    """The absorbed decode's attention: scores q_abs c + q_rope k_rope over
+    the cached positions <= pos, softmax, and the attended latent
+    (B, H, lora).  The caches hold positions ``seq_lo`` on; the ranks of
+    ``seq_group`` hold the others, and the softmax and the sum are
+    finished across them."""
+    s = (torch.einsum("bhl,btl->bht", q_abs, cache_c.to(q_abs.dtype))
+         + torch.einsum("bshr,btr->bht", q_rope,
+                        cache_rope.to(q_rope.dtype)))
+    return attend_upto(s.float() * scale, cache_c.to(q_abs.dtype),
+                       "bht,btl->bhl", pos, seq_lo, seq_group)
+
+
 def mla_decode_apply(params: MLA, x, cache_c, cache_rope, pos: int, *,
                      n_heads: int, mla: MLAConfig
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -135,21 +152,18 @@ def mla_decode_apply(params: MLA, x, cache_c, cache_rope, pos: int, *,
     positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
     q_nope, q_rope = _queries(params, x, n_heads, mla, positions)
     c, k_rope = _compressed_kv(params, x, mla, positions)
-    cache_c[:, pos] = c[:, 0].to(cache_c.dtype)
-    cache_rope[:, pos] = k_rope[:, 0].to(cache_rope.dtype)
+    write_pos(cache_c, pos, c[:, 0])
+    write_pos(cache_rope, pos, k_rope[:, 0])
     # Absorb W_uk into the query: (B,1,H,nope) x (lora,H,nope) -> (B,H,lora).
     w_uk = params.w_uk.reshape(mla.kv_lora_rank, n_heads,
                                mla.qk_nope_head_dim)
     q_abs = torch.einsum("bshn,lhn->bhl", q_nope, w_uk)
     scale = (mla.qk_nope_head_dim + mla.qk_rope_head_dim) ** -0.5
-    s = (torch.einsum("bhl,btl->bht", q_abs, cache_c.to(q_abs.dtype))
-         + torch.einsum("bshr,btr->bht", q_rope,
-                        cache_rope.to(q_rope.dtype)))
-    s = s.float() * scale
-    tpos = torch.arange(cache_c.shape[1], device=x.device)[None, None, :]
-    s = torch.where(tpos <= pos, s, NEG_INF)
-    w = torch.softmax(s, dim=-1).to(x.dtype)
-    ctx = torch.einsum("bht,btl->bhl", w, cache_c.to(x.dtype))
+    # Parallel over the batch and the heads, and over the cache's
+    # positions where the rules shard them.
+    ctx = local_parallel(_absorbed_core, (q_abs, q_rope, cache_c, cache_rope),
+                         ((0, 1), (0, 2), (0, None), (0, None)), (0, 1),
+                         split=(None, None, 1, 1), pos=pos, scale=scale)
     w_uv = params.w_uv.reshape(mla.kv_lora_rank, n_heads, mla.v_head_dim)
     out = torch.einsum("bhl,lhv->bhv", ctx, w_uv).reshape(B, 1, -1)
     return shard(out @ params.wo, "batch", None, None), cache_c, cache_rope

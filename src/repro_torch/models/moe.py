@@ -294,6 +294,7 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg: MoEConfig, act: str,
     B * S tokens; under them, the expert-parallel paths (module
     docstring)."""
     B, S, D = x.shape
+    x = sharding.gather_seq(x)        # one gather for routing and shared
     rules = sharding.mesh_rules()
     sizes = rules.axis_sizes if rules is not None else {}
     mesh_ok = "model" in sizes and cfg.n_routed % sizes["model"] == 0

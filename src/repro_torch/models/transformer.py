@@ -40,7 +40,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import shard, split_heads
+from ..distributed.sharding import (current_rules, shard, split_heads,
+                                    use_rules)
 from ..obs.profiling import annotate
 from . import attention as attn
 from . import mamba2 as ssd
@@ -197,14 +198,24 @@ def init_params(cfg: ModelConfig, *, generator=None, device=None,
     return lm
 
 
+def _block_under(rules, *args):
+    """``_block_apply`` under ``rules``: remat recomputes the block in the
+    backward, which on the card runs in autograd's device thread, where
+    the forward's thread-local rules are not installed."""
+    with use_rules(rules):
+        return _block_apply(*args)
+
+
 def _run_stack(layers, cfg: ModelConfig, kind: str, x, positions,
                backend: str, remat: bool = False):
     """The layers in order; with ``remat`` each block keeps only its input
-    for the backward and recomputes the rest there."""
+    for the backward and recomputes the rest there, under the same
+    rules."""
+    rules = current_rules()
     for p in layers:
         if remat:
-            x = checkpoint(_block_apply, p, cfg, kind, x, positions, backend,
-                           use_reentrant=False)
+            x = checkpoint(_block_under, rules, p, cfg, kind, x, positions,
+                           backend, use_reentrant=False)
         else:
             x = _block_apply(p, cfg, kind, x, positions, backend)
     return x

@@ -36,9 +36,34 @@ def run_ranks(fn, tmp_path, *args, world: int = 8):
     return torch.load(out, weights_only=False)
 
 
-def _mesh():
+def _mesh(shape=MESH):
+    """A ("data", "model") mesh, or ("pod", "data", "model") of 3 dims."""
     from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh("cpu", MESH, mesh_dim_names=("data", "model"))
+    names = ("pod", "data", "model")[-len(shape):]
+    return init_device_mesh("cpu", shape, mesh_dim_names=names)
+
+
+def _lm(cfg, state):
+    """The smoke ``LM`` of ``cfg`` from ``state``, float32 on the CPU."""
+    from repro_torch.models import transformer
+    params = transformer.LM(cfg, torch.float32, "cpu")
+    params.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return params
+
+
+def _place(params, rules):
+    """``params`` as DTensors laid out by ``rules``; returns their specs."""
+    from repro_torch.distributed import sharding as sh
+    pspecs = sh.param_pspecs(params, rules)
+    sh.distribute_params(params, rules, pspecs)
+    return pspecs
+
+
+def _inputs(batch, rules):
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import steps
+    b = {k: torch.from_numpy(v) for k, v in batch.items()}
+    return sh.distribute_tree(b, steps.batch_pspec(rules, b), rules.mesh)
 
 
 def layer_checks(rank, state, x_small, x_big, w_small, h, w, x_dropless,
@@ -108,26 +133,27 @@ def train_step(rank, arch, batch, state):
     on the (2, 4) mesh, from the weights ``state`` (the reference's, by
     ``convert``); returns the loss, grad norm, new parameters and the
     AdamW state's leaves by dotted path."""
+    from repro_torch.distributed import sharding as sh
+    return _train_case(arch, batch, state, sh.default_rules(_mesh()))
+
+
+def _train_case(arch, batch, state, rules):
+    """One ``make_train_step`` of ``arch``'s smoke config under ``rules``
+    (``train_step``'s result)."""
     from repro_torch.configs import smoke_config
     from repro_torch.convert import _flatten
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch import steps
-    from repro_torch.models import transformer
     from repro_torch.optim import OptConfig, opt_init
     cfg = smoke_config(arch)
     opt = OptConfig(lr=1e-3, weight_decay=0.0)
-    params = transformer.LM(cfg, torch.float32, "cpu")
-    params.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    params = _lm(cfg, state)
     st = opt_init(params, opt)
-    mesh = _mesh()
-    rules = sh.default_rules(mesh)
-    pspecs = sh.param_pspecs(params, rules)
-    st = sh.distribute_tree(st, steps.param_pspecs_for_opt(st, pspecs), mesh)
-    sh.distribute_params(params, rules, pspecs)
-    b = {k: torch.from_numpy(v) for k, v in batch.items()}
-    b = sh.distribute_tree(b, steps.batch_pspec(rules, b), mesh)
+    pspecs = _place(params, rules)
+    st = sh.distribute_tree(st, steps.param_pspecs_for_opt(st, pspecs),
+                            rules.mesh)
     step = steps._bind_rules(steps.make_train_step(cfg, opt), rules)
-    params, st, m = step(params, st, b)
+    params, st, m = step(params, st, _inputs(batch, rules))
     opt_leaves = {}
     _flatten(st["leaves"], "leaves.", opt_leaves,
              leaf=lambda x: x.full_tensor().detach().float().numpy())
@@ -141,6 +167,113 @@ def train_step(rank, arch, batch, state):
             "step": int(st["step"].full_tensor()
                         if hasattr(st["step"], "full_tensor")
                         else st["step"])}
+
+
+def _thread_grads(arch, batch, state, rules):
+    """The gradients of ``arch``'s loss (remat) under ``rules``, by name:
+    ``"here"`` with the backward in the calling thread under the rules, as
+    ``make_train_step`` runs it on the CPU, and ``"thread"`` with the
+    backward in a thread of its own, as autograd runs a card's backward:
+    there no rules are installed, and DTensor's implicit replication is
+    off where a torch release keeps it per thread.  An error there is
+    returned as its text."""
+    import threading
+    import traceback
+    from repro_torch.configs import smoke_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import transformer
+    cfg = smoke_config(arch)
+    params = _lm(cfg, state)
+    _place(params, rules)
+    params.requires_grad_(True)
+    names, leaves = zip(*params.named_parameters())
+    b = _inputs(batch, rules)
+
+    def grads(in_thread: bool):
+        with sh.use_rules(rules):
+            loss = transformer.loss(params, cfg, b, remat=True)
+            if not in_thread:
+                return torch.autograd.grad(loss, leaves, allow_unused=True)
+        got = []
+
+        def backward():
+            try:
+                got.append(torch.autograd.grad(loss, leaves,
+                                               allow_unused=True))
+            except Exception:
+                got.append(traceback.format_exc(limit=-3))
+
+        t = threading.Thread(target=backward, daemon=True)
+        t.start()
+        t.join(timeout=600)
+        return got[0] if got else "the backward ran past 600 s"
+
+    out = {}
+    for key, in_thread in (("here", False), ("thread", True)):
+        g = grads(in_thread)
+        out[key] = g if isinstance(g, str) else {
+            n: None if x is None else x.full_tensor().numpy()
+            for n, x in zip(names, g)}
+    return out
+
+
+def seq_parallel(rank, train, prefill, decode):
+    """The sequence-parallel rule sets (act_seq and kv_seq over "model") on
+    the (2, 4) mesh, every case in one world: for each ``train`` arch
+    ({arch: (batch, state)}) one train step under "opt" and under "serve"
+    (``_train_case``'s result), and mamba2-1.3b's under the baseline rules
+    on a (2, 2, 2) ("pod", "data", "model") mesh, whose one row a (pod,
+    data) shard holds, and the gradients under "opt" with the backward in
+    the calling thread and in another (``_thread_grads``); for each
+    ``prefill`` arch ({arch: (tokens, state)}) the prefill step's last
+    logits under both; for each ``decode`` arch ({arch: (tokens (B, n),
+    filled cache, pos, state)}) n decode steps from pos under "serve" (the
+    cache's positions over "model"), their logits and the cache after them."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.convert import _flatten, nest
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import steps
+    mesh = _mesh()
+    out = {}
+    for arch, (batch, state) in train.items():
+        for name in ("opt", "serve"):
+            out["train", arch, name] = _train_case(
+                arch, batch, state, sh.RULE_SETS[name](mesh))
+    if "mamba2-1.3b" in train:
+        out["train", "mamba2-1.3b", "pod"] = _train_case(
+            "mamba2-1.3b", *train["mamba2-1.3b"],
+            sh.default_rules(_mesh((2, 2, 2))))
+    for arch, (batch, state) in train.items():
+        out["thread", arch, "opt"] = _thread_grads(
+            arch, batch, state, sh.optimized_rules(mesh))
+    for arch, (tokens, state) in prefill.items():
+        cfg = smoke_config(arch)
+        for name in ("opt", "serve"):
+            rules = sh.RULE_SETS[name](mesh)
+            params = _lm(cfg, state)
+            _place(params, rules)
+            step = steps._bind_rules(
+                steps.make_prefill_step(cfg, backend="torch"), rules)
+            out["prefill", arch, name] = step(
+                params, _inputs({"tokens": tokens}, rules)).full_tensor(
+                ).numpy()
+    for arch, (tokens, cache, pos, state) in decode.items():
+        cfg = smoke_config(arch)
+        rules = sh.serve_rules(mesh)
+        params = _lm(cfg, state)
+        _place(params, rules)
+        tree = nest({k: torch.from_numpy(v) for k, v in cache.items()})
+        tree = sh.distribute_tree(tree, steps.cache_pspecs(tree, rules), mesh)
+        step = steps._bind_rules(steps.make_decode_step(cfg), rules)
+        logits = []
+        for i in range(tokens.shape[1]):
+            got, tree = step(params, _inputs({"tokens": tokens[:, i:i + 1]},
+                                             rules), tree, pos + i)
+            logits.append(got.full_tensor().numpy())
+        flat = {}
+        _flatten(tree, "", flat, leaf=lambda x: x.full_tensor().numpy())
+        out["decode", arch, "serve"] = {"logits": logits, "cache": flat}
+    return out
 
 
 def as_numpy_state(module) -> dict:

@@ -1,6 +1,9 @@
-"""The port's dry run (``repro_torch.launch.dryrun``): one cell at full
-width and depth on a fake world of 256 ranks, in a process of its own,
-and the counter under it on a product whose counts are known."""
+"""The port's dry run (``repro_torch.launch.dryrun``): a cell at full
+width and depth on a fake world of 256 ranks in a process of its own; a
+run of cells in one process, the first of which fails; and the counter
+under it on a product whose counts are known.  ``rule_set_cell`` runs a
+cell under one of the three rule sets, for ``test_torch_dryrun_seq`` and
+``test_torch_dryrun_ssm``."""
 import json
 import os
 import subprocess
@@ -39,6 +42,64 @@ def test_dryrun_single_cell_runs():
     assert 0 < rec["useful_ratio"] <= 1
     assert rec["flops_per_device"] >= rec["model_flops_per_device"]
     assert rec["counter"]
+
+
+def rule_set_cell(arch: str, shape: str, multi_pod: bool,
+                  rules: str) -> None:
+    """``run_cell`` of one cell under the rule set ``rules`` in a process
+    of its own: it records ``ok``, and under sequence parallelism ("opt",
+    "serve") its collectives include the all-gather before the
+    column-parallel products and the reduce-scatter after the row-parallel
+    ones.  (The tests that call it sit in files of their own, which the
+    test runner's workers take up side by side.)"""
+    out = _run(f"""
+        import json
+        from repro_torch.distributed.sharding import RULE_SETS
+        from repro_torch.launch.dryrun import run_cell
+        rec = run_cell({arch!r}, {shape!r}, {multi_pod!r},
+                       RULE_SETS[{rules!r}], tag={rules!r})
+        print("REC" + json.dumps({{k: rec.get(k) for k in (
+            "status", "error", "collective_bytes_by_kind")}}))
+    """, timeout=900)
+    rec = json.loads(out.split("REC", 1)[1])
+    assert rec["status"] == "ok", rec["error"]
+    if rules != "baseline":       # sequence parallelism's collectives
+        assert {"all-gather", "reduce-scatter"} <= set(
+            rec["collective_bytes_by_kind"]), rec
+
+
+def test_a_failed_cell_leaves_the_next_cells_sound():
+    """One process runs a 2 x 16 x 16 cell made to raise inside its step
+    after its first collectives (the vocab-parallel embedding), a 16 x 16
+    cell, then gemma-2b x decode_32k x 2 x 16 x 16 under the serve rules,
+    which records ``ok`` as it does alone: no mesh or process group of an
+    earlier world reaches a later cell.  The middle cell's world of
+    another size is what a stale mesh needs to go wrong: a cached
+    sharding spec still named the first world's groups, and the third
+    cell failed without it having to follow a failed one."""
+    out = _run("""
+        import json
+        from repro_torch.distributed.sharding import serve_rules
+        from repro_torch.launch.dryrun import run_cell
+        from repro_torch.models import layers
+        lookup = layers._embed_rows
+
+        def raising(*a, **k):
+            lookup(*a, **k)
+            raise RuntimeError("raised after the embedding's collectives")
+
+        layers._embed_rows = raising
+        recs = [run_cell("gemma-2b", "prefill_32k", True, serve_rules)]
+        layers._embed_rows = lookup
+        recs += [run_cell("gemma-2b", "decode_32k", multi, serve_rules)
+                 for multi in (False, True)]
+        print("REC" + json.dumps([[r["status"], r.get("error")]
+                                  for r in recs]))
+    """, timeout=900)
+    recs = json.loads(out.split("REC", 1)[1])
+    assert recs[0] == ["failed", "RuntimeError: raised after the "
+                       "embedding's collectives"], recs[0]
+    assert recs[1][0] == "ok" and recs[2][0] == "ok", recs
 
 
 def test_step_counter_on_a_sharded_product():

@@ -28,9 +28,12 @@ SSM_ARCH = "mamba2-1.3b"          # the conv and the chunked SSD on local shards
 LR = 1e-3
 
 
-def sharded_and_reference(arch: str, tmp) -> tuple:
-    """(the sharded step's result from rank 0, the reference's metrics,
-    new parameters, AdamW leaves by dotted path, the first parameters)."""
+def reference_step(arch: str) -> dict:
+    """The reference's single-device step of ``arch``'s smoke config from
+    seed 0 (B = 4, S = 64, lr ``LR``, no weight decay): its ``batch`` (int64)
+    and ``state`` (the first weights, converted; ``jparams`` as the
+    reference holds them), its metrics ``m1``, new parameters ``want`` and
+    AdamW leaves ``moments`` by dotted path."""
     cfg = jsmoke(arch)
     batch = jmake_batch(cfg, JShape("t", 64, 4, "train"), 0)
     params = jtransformer.init_params(jax.random.PRNGKey(0), cfg, jnp.float32)
@@ -39,17 +42,25 @@ def sharded_and_reference(arch: str, tmp) -> tuple:
         params, jopt_init(params, opt), batch)
     lm = lm_params_from_jax(jax.tree.map(np.asarray, params), tsmoke(arch),
                             device="cpu")
-    got = _torch_dist.run_ranks(
-        _torch_dist.train_step, tmp, arch,
-        {k: np.asarray(v).astype(np.int64) for k, v in batch.items()},
-        _torch_dist.as_numpy_state(lm))
     want = lm_params_from_jax(jax.tree.map(np.asarray, p1), tsmoke(arch),
                               device="cpu")
     moments = {}
     _flatten(s1["leaves"], "leaves.", moments,
              leaf=lambda x: np.asarray(x, np.float32))
-    return (got, m1, _torch_dist.as_numpy_state(want), moments,
-            _torch_dist.as_numpy_state(lm))
+    return {"batch": {k: np.asarray(v).astype(np.int64)
+                      for k, v in batch.items()},
+            "state": _torch_dist.as_numpy_state(lm), "jparams": params,
+            "m1": m1,
+            "want": _torch_dist.as_numpy_state(want), "moments": moments}
+
+
+def sharded_and_reference(arch: str, tmp) -> tuple:
+    """(the sharded step's result from rank 0, the reference's metrics,
+    new parameters, AdamW leaves by dotted path, the first parameters)."""
+    ref = reference_step(arch)
+    got = _torch_dist.run_ranks(_torch_dist.train_step, tmp, arch,
+                                ref["batch"], ref["state"])
+    return got, ref["m1"], ref["want"], ref["moments"], ref["state"]
 
 
 @pytest.fixture(scope="module")
