@@ -252,7 +252,25 @@ prints its wall seconds:
    ``_moe_small_t`` under ``serve_rules`` against the no-mesh layer; (e)
    ``python -m repro_torch.launch.dryrun`` for gemma-2b x prefill_32k and
    deepseek-v2-lite-16b x decode_32k on the 16 x 16 mesh (a fake world
-   of 256 ranks, no card), each record ``ok`` and printed.
+   of 256 ranks, no card), each record ``ok`` and printed;
+27. the LM entry points on a one-card mesh (the host mesh of a world-1
+   NCCL group, as ``torchrun`` forms it): (a) gemma-2b whole, float32,
+   B = 1, S = 4096: a 3-step ``train_loop`` without a group (the plain
+   path), then the same under the mesh (``default_rules``, the weights
+   drawn module by module onto it): its losses within 1e-6 relative of
+   the plain ones, each run's step walls and peak memory; (b) gemma-2b
+   cut to 2 layers, B = 2, S = 128, on the mesh (a factored state with a
+   bfloat16 m): a 4-step ``train_loop`` against a 2-step one that
+   checkpoints its step 2 and a second that resumes from it (restored
+   from 2, 2 steps run, losses within 1e-6 relative), the checkpoints'
+   gather, write and restore seconds; (c) deepseek-v2-lite-16b whole in
+   bfloat16: ``generate`` of 8 tokens after 16 (B = 2, dropless) without
+   rules, then under ``default_rules`` and under ``serve_rules`` (the
+   cache's positions over "model") from ``init_sharded_params`` of the
+   same seed: the same tokens, ms a decode step of each; (d) ``torchrun
+   --nproc_per_node 1 -m repro_torch.launch.train --arch stablelm-1.6b
+   --smoke --steps 3`` in a subprocess (NCCL on the card): its last line
+   the reference's JSON.
 
 The line before the last is a JSON summary of the kernels (B1's times
 are the 13 DFP layers' at M = 64; B1, B2, B3, B5 and B6 count the
@@ -2599,26 +2617,50 @@ def phase_vector_training(agent, slots, config, per_step=MLP_STEP,
 
 RELOAD_STEP = 23          # phase 21's checkpoint step of agent B
 RELOAD_AT = 100           # decisions served on agent A before the commit
+RELOAD_HOLD = 250         # decisions after the commit before the client
+                          # waits for the swap (of the trace's ~500)
+RELOAD_WAIT_S = 120.0     # how long it waits before the phase fails
 
 
 class ReloadPolicy:
     """ServicePolicy that keeps every served row with its action and the
     service's ``params_step`` read just before and just after the request,
     and at decision ``commit_at`` publishes a committed checkpoint step by
-    renaming it into the watched directory (as the store commits)."""
+    renaming it into the watched directory (as the store commits).
 
-    def __init__(self, service, commit_at: int, src: str, dst: str):
+    The watcher's restore competes with the serving threads for the host,
+    so on a slow host it can land after the trace's last request.  If the
+    service still runs on the old weights ``hold_after`` decisions after
+    the commit, the client therefore stops sending until ``step`` is
+    swapped in (at most ``RELOAD_WAIT_S``), and ``held_s`` says how long:
+    the rest of the trace is then served on the new weights."""
+
+    def __init__(self, service, commit_at: int, src: str, dst: str,
+                 step: int, hold_after: int):
         from repro_torch.serve import ServicePolicy
         self._inner = ServicePolicy(service)
         self.service, self.commit_at, self.src, self.dst = (
             service, commit_at, src, dst)
+        self.step, self.hold_at = step, commit_at + hold_after
         self.rows: list = []
         self.t_commit = None
+        self.held_s = 0.0
 
     def select(self, ctx) -> int:
         if len(self.rows) == self.commit_at:
             os.rename(self.src, self.dst)
             self.t_commit = time.perf_counter()
+        elif (len(self.rows) == self.hold_at
+              and self.service.params_step != self.step):
+            t0 = time.perf_counter()
+            while self.service.params_step != self.step:
+                if time.perf_counter() - t0 > RELOAD_WAIT_S:
+                    raise RuntimeError(
+                        f"the watcher did not swap in step {self.step} "
+                        f"within {RELOAD_WAIT_S} s of decision "
+                        f"{self.hold_at}")
+                time.sleep(0.002)
+            self.held_s = time.perf_counter() - t0
         before = self.service.params_step
         action = self._inner.select(ctx)
         self.rows.append((self.service._encode(ctx), action, before,
@@ -2702,7 +2744,7 @@ def phase_checkpoint_reload() -> dict:
         watcher = CheckpointWatcher(svc, watched, poll_interval_s=0.02)
         policy = ReloadPolicy(svc, RELOAD_AT, step_dir,
                               os.path.join(watched, os.path.basename(
-                                  step_dir)))
+                                  step_dir)), RELOAD_STEP, RELOAD_HOLD)
         reset_launch_counts()
         svc.start()
         watcher.start()
@@ -2726,7 +2768,7 @@ def phase_checkpoint_reload() -> dict:
     assert [e["step"] for e in reloads] == [RELOAD_STEP], reloads
     n = len(policy.rows)
     snap = reg.snapshot()
-    assert result.decisions == n == stats["requests"] > RELOAD_AT, (
+    assert result.decisions == n == stats["requests"] > policy.hold_at, (
         result.decisions, n, stats["requests"])
     assert snap["serve_requests_total"][""] == n, snap["serve_requests_total"]
     assert snap["serve_reloads_total"][""] == 1.0, snap["serve_reloads_total"]
@@ -2766,7 +2808,8 @@ def phase_checkpoint_reload() -> dict:
     out = {"launches": counts["forward"], "forwards": forwards,
            "save_async_ms": save_ms, "save_bg_s": bg_s, "save_mb": mb,
            "restore_ms": restore_ms, "reload_ms": reload_ms,
-           "decisions": n, "before": len(rows), "after": len(rows_b)}
+           "held_s": policy.held_s, "decisions": n, "before": len(rows),
+           "after": len(rows_b)}
     log(f"[ckpt] {card}: save_async of agent B ({n_params} parameters) "
         f"{save_ms:.3f} ms on the caller's thread; background save "
         f"{bg_s:.3f} s, {mb:.1f} MB on disk; restore onto the card "
@@ -2774,7 +2817,9 @@ def phase_checkpoint_reload() -> dict:
     log(f"[reload] {card}: {n} decisions in {wall:.3f} s, step "
         f"{RELOAD_STEP} committed after {RELOAD_AT}: {len(rows)} served on "
         f"A, {len(rows_b)} on B, {len(mixed)} across the swap; commit to "
-        f"the first decision on the new weights {reload_ms:.3f} ms")
+        f"the first decision on the new weights {reload_ms:.3f} ms; the "
+        f"client held {policy.held_s:.3f} s for the swap after decision "
+        f"{policy.hold_at}")
     log(f"[reload] launches {json.dumps(counts)} = (forward 13) x "
         f"{forwards} forwards; A's rows: max abs err {err_a!r} (tol "
         f"{tol_a!r}), {dec_a} decisive; B's rows: {err_b!r} (tol "
@@ -4789,6 +4834,247 @@ def mesh_dryrun() -> dict:
     return recs
 
 
+# ------------------------------------- phase 27: the entry points on a mesh
+ENTRY_STEPS = 3
+ENTRY_RTOL = 1e-6
+SERVE_ARCH, SERVE_PROMPT, SERVE_NEW, SERVE_B = (
+    "deepseek-v2-lite-16b", 16, 8, 2)
+
+
+def timed_train_steps(walls: list):
+    """A ``make_train_step`` for ``launch.train`` whose steps append their
+    wall seconds (the card synchronised around each) to ``walls``."""
+    from repro_torch.launch import train as train_mod
+    make = train_mod.make_train_step
+
+    def timed_make(*a, **k):
+        fn = make(*a, **k)
+
+        def step(*b):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*b)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            return out
+        return step
+    return timed_make
+
+
+def entry_train(name: str, **kw) -> tuple:
+    """``train_loop`` of gemma-2b whole (``kw`` its other arguments) with
+    its steps timed -> (run, step walls, peak bytes, wall seconds)."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import train as train_mod
+    cfg = get_config(TRAIN_ARCH)
+    walls = []
+    make = train_mod.make_train_step
+    train_mod.make_train_step = timed_train_steps(walls)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        run = train_mod.train_loop(
+            cfg, InputShape("train", TRAIN_S, TRAIN_B, "train"),
+            steps=ENTRY_STEPS, log_every=1, **kw)
+    finally:
+        train_mod.make_train_step = make
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[mesh entry] {name} train_loop of {cfg.name} whole "
+        f"({cfg.n_layers} layers, float32) B={TRAIN_B} S={TRAIN_S}: "
+        f"losses {run.losses}; step walls "
+        f"{[round(w * 1e3, 2) for w in walls]} ms; peak memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB); {total:.1f} s with the weights' draw; "
+        f"card {gpu_name_and_power_limit()}")
+    free_cuda()
+    return run, walls, peak, total
+
+
+class TimedManager:
+    """Wall seconds of ``CheckpointManager``'s calls in ``train_loop``:
+    ``save_async`` (the gather onto the host, on the caller's thread),
+    ``wait`` (the background write and the barrier) and
+    ``restore_latest``."""
+
+    def __init__(self):
+        from repro_torch.checkpoint import CheckpointManager
+        times = self.times = {"save_async": [], "wait": [],
+                              "restore_latest": []}
+
+        class Timed(CheckpointManager):
+            pass
+
+        for name in times:
+            def wrap(fn, name=name):
+                def call(self, *a, **k):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    try:
+                        return fn(self, *a, **k)
+                    finally:
+                        times[name].append(time.perf_counter() - t0)
+                return call
+            setattr(Timed, name, wrap(getattr(CheckpointManager, name)))
+        self.cls = Timed
+
+
+def entry_checkpoint(mesh) -> dict:
+    """(b) the checkpoint cycle on the mesh (module docstring)."""
+    import tempfile
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import OptConfig
+    cfg = replace(get_config(TRAIN_ARCH), n_layers=TRAIN_CUT)
+    shape = InputShape("train", TRAIN_PARITY_S, TRAIN_PARITY_B, "train")
+    # Phase 24's resume: a factored state (vr, vc) and a bfloat16 m.
+    opt = OptConfig(factored=True, m_dtype=torch.bfloat16)
+    timed_cls = TimedManager()
+    kept = train_mod.CheckpointManager
+    train_mod.CheckpointManager = timed_cls.cls
+    try:
+        with tempfile.TemporaryDirectory() as b:
+            whole = train_mod.train_loop(cfg, shape, steps=4, log_every=1,
+                                         mesh=mesh, opt=opt)
+            first = train_mod.train_loop(cfg, shape, steps=2, ckpt_dir=b,
+                                         ckpt_every=2, log_every=1,
+                                         mesh=mesh, opt=opt)
+            size = dir_bytes(os.path.join(b, "step_00000002"))
+            resumed = train_mod.train_loop(cfg, shape, steps=4, ckpt_dir=b,
+                                           ckpt_every=2, log_every=1,
+                                           mesh=mesh, opt=opt)
+    finally:
+        train_mod.CheckpointManager = kept
+    times = timed_cls.times
+    # The waits that joined a write (the others find none in flight).
+    times["wait"] = [t for t in times["wait"] if t > 1e-3]
+    errs = [abs(x / y - 1) for x, y in zip(resumed.losses, whole.losses[2:])]
+    log(f"[mesh entry] checkpoint cycle of {cfg.name} at {cfg.n_layers} "
+        f"layers on the mesh, B={TRAIN_PARITY_B} S={TRAIN_PARITY_S}: a step "
+        f"is {size} bytes; losses {whole.losses} against {first.losses} + "
+        f"{resumed.losses} (restored from {resumed.restored_from}, "
+        f"{resumed.steps} steps): max rel err {max(errs)!r} (tol "
+        f"{ENTRY_RTOL}); seconds: save_async's gather "
+        f"{[round(t, 4) for t in times['save_async']]}, wait (write and "
+        f"barrier) {[round(t, 4) for t in times['wait']]}, restore_latest "
+        f"{[round(t, 4) for t in times['restore_latest']]}; card "
+        f"{gpu_name_and_power_limit()}")
+    if resumed.restored_from != 2 or resumed.steps != 2 \
+            or first.losses != whole.losses[:2] or max(errs) > ENTRY_RTOL:
+        raise AssertionError("[mesh entry] the resumed run differs")
+    return {"bytes": size, "max_rel_err": max(errs), "times": times}
+
+
+def entry_generate(mesh) -> dict:
+    """(c) ``generate`` of deepseek-v2-lite-16b whole in bfloat16, plain
+    and under two rule sets (module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import transformer
+    cfg = dropless(get_config(SERVE_ARCH))
+    dtype = torch.bfloat16
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT),
+                            generator=torch.Generator("cuda").manual_seed(1),
+                            device="cuda")
+    out = {}
+    for name in ("plain", "baseline", "serve"):
+        gen = torch.Generator("cuda").manual_seed(0)
+        if name == "plain":
+            rules = None
+            params = transformer.init_params(cfg, generator=gen,
+                                             device="cuda", dtype=dtype)
+        else:
+            rules = sh.RULE_SETS[name](mesh)
+            params = steps.init_sharded_params(cfg, rules, generator=gen,
+                                               dtype=dtype)
+        res = serve.generate(cfg, params, prompts, max_new_tokens=SERVE_NEW,
+                             rules=rules, dtype=dtype)
+        ms = 1e3 * SERVE_B / res["decode_tps"]
+        out[name] = {"tokens": res["tokens"], "ms_per_step": ms}
+        log(f"[mesh entry] generate {cfg.name} whole (bfloat16) "
+            f"{SERVE_NEW} tokens after {SERVE_PROMPT}, B={SERVE_B}, "
+            f"{'no rules' if rules is None else name + ' rules'}: "
+            f"{ms:.3f} ms a decode step; tokens "
+            f"{res['tokens'][:, SERVE_PROMPT:].tolist()}; card "
+            f"{gpu_name_and_power_limit()}")
+        del params, res
+        free_cuda()
+    for name in ("baseline", "serve"):
+        if not torch.equal(out[name]["tokens"], out["plain"]["tokens"]):
+            raise AssertionError(f"[mesh entry] generate under {name} "
+                                 f"rules gives other tokens")
+    return {k: v["ms_per_step"] for k, v in out.items()}
+
+
+def entry_cli() -> dict:
+    """(d) the training command line under ``torchrun`` on the card."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=1", "-m", "repro_torch.launch.train", "--arch",
+           "stablelm-1.6b", "--smoke", "--steps", "3"]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    wall = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"[mesh entry] torchrun: {p.stderr[-3000:]}")
+    last = json.loads(p.stdout.strip().splitlines()[-1])
+    if last.keys() != {"steps", "final_loss", "wall_s"} \
+            or last["steps"] != 3 or not math.isfinite(last["final_loss"]):
+        raise AssertionError(f"[mesh entry] torchrun printed {last}")
+    log(f"[mesh entry] {' '.join(cmd[1:])}: {wall:.1f} s; last line "
+        f"{json.dumps(last)}; card {gpu_name_and_power_limit()}")
+    return last
+
+
+def phase_mesh_entry() -> dict:
+    """Phase 27: the LM entry points on a one-card mesh (module
+    docstring)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import debug
+
+    from repro_torch.launch.mesh import make_host_mesh
+    out = {}
+    assert not dist.is_initialized()
+    # Phase 26's world is gone; its meshes compare equal to this one's,
+    # so DTensor's cached specs could hand an op its process groups (as
+    # the dry run's fake_world, which empties the caches too).
+    debug._clear_sharding_prop_cache()
+    plain = entry_train("plain", device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1,
+                                device_id=torch.device("cuda", 0))
+        try:
+            torch.cuda.set_device(0)
+            mesh = make_host_mesh()
+            # mesh=None: the host mesh of the initialised group.
+            meshed = entry_train("mesh", mesh=None)
+            errs = [abs(x / y - 1) for x, y in zip(meshed[0].losses,
+                                                    plain[0].losses)]
+            log(f"[mesh entry] gemma-2b losses on the mesh against the "
+                f"plain loop: max rel err {max(errs)!r} (tol {ENTRY_RTOL}); "
+                f"median step wall plain "
+                f"{statistics.median(plain[1][1:]) * 1e3:.2f} ms, mesh "
+                f"{statistics.median(meshed[1][1:]) * 1e3:.2f} ms; peak "
+                f"{plain[2] / 2**30:.2f} / {meshed[2] / 2**30:.2f} GiB; card "
+                f"{gpu_name_and_power_limit()}")
+            if len(errs) != ENTRY_STEPS or max(errs) > ENTRY_RTOL:
+                raise AssertionError("[mesh entry] the mesh train_loop's "
+                                     "losses differ from the plain loop's")
+            out["train"] = {"plain": plain[1:], "mesh": meshed[1:],
+                            "max_rel_err": max(errs)}
+            out["ckpt"] = entry_checkpoint(mesh)
+            out["serve"] = entry_generate(mesh)
+        finally:
+            dist.destroy_process_group()
+    out["cli"] = entry_cli()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -4806,6 +5092,7 @@ def main() -> int:
     timed("lm train", phase_lm_train)
     fleet = timed("fleet", phase_fleet)
     timed("mesh", phase_mesh)
+    timed("mesh entry points", phase_mesh_entry)
     for entry in kernels:                 # phase 25's path runs B1-B3
         kind = FLEET_KERNELS.get(entry["name"])
         if kind is not None:

@@ -23,6 +23,15 @@ through torch's own dtypes, without ``ml_dtypes``.
 * restore lands each leaf on the template leaf's device unless told
   otherwise; restoring into a module returns a new module;
 * keeps the newest ``keep`` checkpoints.
+
+Across a world of ranks (DTensor leaves, the reference's sharded arrays):
+a save gathers each DTensor leaf whole, one leaf at a time, on every rank
+of its mesh and on the caller's thread (never in the background, where
+its collectives would meet the next step's); the mesh's first rank alone
+writes, the same full arrays in ``shard_000.npz``, and every rank waits
+until the step is committed.  A restore with ``shardings`` reads each
+leaf whole and lays it out on the target mesh, which may hold another
+number of ranks than the one that saved (the elastic restart).
 """
 from __future__ import annotations
 
@@ -169,14 +178,89 @@ def check_leaves_compat(expected, got, context: str = "checkpoint") -> None:
                 f"{g_dtype}, expected {e_dtype}")
 
 
+def _dtensor_mesh(leaves: List[Any]):
+    """The mesh of the tree's DTensor leaves (None when it has none).  It
+    must span the world: the ranks agree over the default group."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    meshes = []
+    for x in leaves:
+        if isinstance(x, DTensor) and x.device_mesh not in meshes:
+            meshes.append(x.device_mesh)
+    if not meshes:
+        return None
+    if len(meshes) > 1:
+        raise ValueError(f"checkpoint: the tree's DTensors lie on meshes "
+                         f"{meshes}; one is supported")
+    mesh = meshes[0]
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"checkpoint: the leaves' mesh holds {mesh.size()} "
+                         f"of the world's {dist.get_world_size()} ranks")
+    return mesh
+
+
+def _writes(mesh) -> bool:
+    """Whether this rank writes the checkpoint: the mesh's first rank."""
+    import torch.distributed as dist
+    return dist.get_rank() == int(mesh.mesh.flatten()[0])
+
+
+def _host_copies(leaves: List[Any], mesh) -> Optional[List[torch.Tensor]]:
+    """Each leaf whole on the host, on the writing rank (None elsewhere).
+    A DTensor is gathered (``full_tensor``) by every rank, one leaf at a
+    time, so no card holds more than one whole leaf; the writer copies
+    each to the host before the next."""
+    from torch.distributed.tensor import DTensor
+    writer = _writes(mesh)
+    out = []
+    for x in leaves:
+        x = x.detach()
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
+        out.append(x.to("cpu", copy=True) if writer else None)
+    return out if writer else None
+
+
+def _agree(mesh, failed: bool) -> bool:
+    """A barrier over the world that also tells every rank whether any
+    rank's part of a save failed."""
+    import torch.distributed as dist
+    from ..distributed.sharding import mesh_device
+    flag = torch.tensor([int(failed)], dtype=torch.int32,
+                        device=mesh_device(mesh))
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    return bool(flag.item())
+
+
 def save_pytree(tree, directory: str, step: int, extra: Optional[dict] = None
                 ) -> str:
     """Atomic synchronous save of a module's parameters or a nested
-    dict/list of tensors (layout: module docstring)."""
+    dict/list of tensors (layout: module docstring).  A tree of DTensors
+    is saved by every rank of its mesh together: each leaf gathered
+    whole, the mesh's first rank writing, all returning once the step is
+    committed; a failure on the writer raises on every rank."""
     final = os.path.join(directory, f"step_{step:08d}")
+    paths, leaves = _flatten(tree)
+    mesh = _dtensor_mesh(leaves)
+    if mesh is None:
+        return _write(paths, leaves, final, step, extra)
+    host = _host_copies(leaves, mesh)
+    err = None
+    if host is not None:
+        try:
+            _write(paths, host, final, step, extra)
+        except BaseException as e:          # raised after the barrier
+            err = e
+    if _agree(mesh, err is not None):
+        raise err or RuntimeError(f"checkpoint: the writing rank failed to "
+                                  f"save step {step}")
+    return final
+
+
+def _write(paths: List[str], leaves: List[Any], final: str, step: int,
+           extra: Optional[dict]) -> str:
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
-    paths, leaves = _flatten(tree)
     arrays = {}
     manifest = {"step": step, "leaves": [], "extra": extra or {}}
     for i, (p, leaf) in enumerate(zip(paths, leaves)):
@@ -194,16 +278,50 @@ def save_pytree(tree, directory: str, step: int, extra: Optional[dict] = None
     return final
 
 
+def _shardings_by_path(shardings, paths: List[str]) -> dict:
+    """Path -> ``NamedSharding`` of the leaves a tree of shardings places
+    (``ValueError`` for a path the template lacks)."""
+    pairs = []
+    _walk(shardings, (), pairs)
+    unknown = sorted(set(p for p, _ in pairs) - set(paths))
+    if unknown:
+        raise ValueError(f"restore: shardings for leaves the template "
+                         f"lacks: {unknown[:3]}")
+    return dict(pairs)
+
+
+def _place(t: torch.Tensor, leaf, sharding, device) -> torch.Tensor:
+    """A restored array (on the host, the template leaf's dtype) where it
+    goes: laid out by ``sharding`` on its mesh, else like a DTensor
+    template leaf, else on ``device`` or the template leaf's device."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if sharding is None and isinstance(leaf, DTensor):
+        mesh, pl = leaf.device_mesh, leaf.placements
+    elif sharding is not None:
+        mesh, pl = sharding.mesh, sharding.placements
+    else:
+        return t.to(leaf.device if device is None else device)
+    from ..distributed.sharding import mesh_device
+    return distribute_tensor(t.to(mesh_device(mesh)), mesh, pl)
+
+
 def restore_pytree(template, directory: str, step: Optional[int] = None,
-                   device=None):
+                   device=None, shardings=None):
     """Restore into the structure of ``template`` (a module, or a nested
     dict/list of tensors) -> (tree, manifest).
 
     Each leaf is read by its path (``KeyError`` when the checkpoint lacks
     it), must have the template leaf's shape (``ValueError``), and is cast
     to the template leaf's dtype.  It lands on ``device``; ``None`` means
-    the template leaf's own device.  A module template gives a new module
-    holding the loaded weights; the template is never written to.
+    the template leaf's own device.  ``shardings`` (the reference's
+    elastic restart), a tree of ``sharding.NamedSharding`` matching a
+    nested template (None for a leaf it leaves alone), lays each leaf it
+    names out on that
+    mesh, whatever mesh saved it: every rank reads the leaf whole and
+    keeps its shard.  A DTensor template leaf it does not name keeps the
+    template's layout.  The template's leaves may then be meta tensors.
+    A module template gives a new module holding the loaded weights; the
+    template is never written to.
     """
     if step is None:
         step = latest_step(directory)
@@ -213,6 +331,7 @@ def restore_pytree(template, directory: str, step: Optional[int] = None,
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     paths, leaves = _flatten(template)
+    placed = _shardings_by_path(shardings, paths)
     meta_by_path = {leaf["path"]: leaf for leaf in manifest["leaves"]}
     out = {}
     with np.load(os.path.join(d, "shard_000.npz")) as data:
@@ -226,8 +345,8 @@ def restore_pytree(template, directory: str, step: Optional[int] = None,
                 raise ValueError(f"shape mismatch for {p}: ckpt "
                                  f"{tuple(t.shape)} vs template "
                                  f"{tuple(leaf.shape)}")
-            out[p] = t.to(leaf.device if device is None else device,
-                          dtype=leaf.dtype)
+            out[p] = _place(t.to(dtype=leaf.dtype), leaf, placed.get(p),
+                            device)
     return _unflatten(template, out), manifest
 
 
@@ -258,6 +377,14 @@ class CheckpointManager:
     silent: the worker exception is captured and re-raised from
     ``wait()`` — and therefore from the next ``save_async``/``save``/
     ``restore_latest``, which all flush first.
+
+    With DTensor leaves every rank of their mesh (the whole world) calls
+    the same methods in the same order: each save gathers the leaves on
+    every rank, on the caller's thread; the mesh's first rank alone writes
+    (``save_async`` from its background thread) and prunes old steps;
+    ``wait()`` on every rank returns only once that write is committed
+    (a barrier), so any rank's ``latest_step`` then finds it, and raises on
+    every rank when the write failed.
     """
 
     def __init__(self, directory: str, keep: int = 3):
@@ -265,6 +392,7 @@ class CheckpointManager:
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._async_exc: Optional[BaseException] = None
+        self._mesh = None             # the mesh of an uncommitted save
         os.makedirs(directory, exist_ok=True)
 
     def save_async(self, tree, step: int, extra: Optional[dict] = None):
@@ -272,9 +400,17 @@ class CheckpointManager:
         # Copy to the host *before* backgrounding, so an optimizer step
         # that updates the parameters in place cannot tear the snapshot.
         paths, leaves = _flatten(tree)
-        # (On the CPU, ``.cpu()`` and ``.numpy()`` share the leaf's memory.)
-        host = _Flat(paths, [x.detach().to("cpu", copy=True)
-                             for x in leaves])
+        mesh = _dtensor_mesh(leaves)
+        if mesh is None:
+            # (On the CPU, ``.cpu()`` and ``.numpy()`` share the leaf's
+            # memory.)
+            copies = [x.detach().to("cpu", copy=True) for x in leaves]
+        else:
+            copies = _host_copies(leaves, mesh)
+            self._mesh = mesh
+            if copies is None:                  # not the writing rank
+                return
+        host = _Flat(paths, copies)
 
         def work():
             try:
@@ -290,20 +426,30 @@ class CheckpointManager:
     def save(self, tree, step: int, extra: Optional[dict] = None):
         self.wait()
         save_pytree(tree, self.directory, step, extra)
-        self._gc()
+        mesh = _dtensor_mesh(_flatten(tree)[1])
+        if mesh is None or _writes(mesh):
+            self._gc()
 
     def wait(self):
-        """Join any in-flight async save; re-raise its failure, if any."""
+        """Join any in-flight async save; re-raise its failure, if any.
+        After a save of DTensors, every rank waits here for the writer's
+        commit, and raises when it failed."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._async_exc is not None:
-            exc, self._async_exc = self._async_exc, None
+        exc, self._async_exc = self._async_exc, None
+        if self._mesh is not None:
+            mesh, self._mesh = self._mesh, None
+            if _agree(mesh, exc is not None) and exc is None:
+                raise RuntimeError("checkpoint: the writing rank failed to "
+                                   "save")
+        if exc is not None:
             raise exc
 
-    def restore_latest(self, template, device=None):
+    def restore_latest(self, template, device=None, shardings=None):
         self.wait()
-        return restore_pytree(template, self.directory, None, device)
+        return restore_pytree(template, self.directory, None, device,
+                              shardings)
 
     def _gc(self):
         steps = _step_numbers(self.directory)

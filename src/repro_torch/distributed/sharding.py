@@ -81,6 +81,14 @@ def mesh_axis_sizes(mesh) -> Dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
+def mesh_device(mesh) -> torch.device:
+    """The device this rank's shards of a ``DeviceMesh`` live on (its
+    card, or the CPU)."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
 def _is_device_mesh(mesh) -> bool:
     return mesh is not None and not isinstance(mesh, AbstractMesh)
 
@@ -494,14 +502,38 @@ def distribute_params(params: nn.Module, rules: Rules,
     return params
 
 
+def _map_tree(fn, tree, specs):
+    """``fn(leaf, spec)`` over a nested dict/list of leaves and the
+    matching tree of specs (a ``PartitionSpec`` is a leaf, not a list)."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree,
+                                                          PartitionSpec):
+        return type(tree)(_map_tree(fn, v, s) for v, s in zip(tree, specs))
+    return fn(tree, specs)
+
+
+def named_shardings(specs, mesh):
+    """A tree of specs as the matching tree of ``NamedSharding`` on
+    ``mesh`` (what ``checkpoint.restore_pytree`` takes)."""
+    return _map_tree(lambda spec, _: NamedSharding(mesh, spec), specs, specs)
+
+
+def zeros_tree(tree, specs, mesh):
+    """DTensor zeros of each leaf's shape and dtype (its device is not
+    read: meta tensors serve), laid out by the matching tree of specs on
+    ``mesh``.  Each rank makes its own shard; no rank holds a whole
+    leaf."""
+    from torch.distributed.tensor import zeros
+    return _map_tree(lambda t, spec: zeros(
+        tuple(t.shape), dtype=t.dtype, device_mesh=mesh,
+        placements=placements(spec, mesh)), tree, specs)
+
+
 def distribute_tree(tree, specs, mesh):
     """A nested dict (or list) of tensors as DTensors laid out by the
     matching tree of specs on ``mesh`` (every rank passes the same full
     tensors; each keeps its shard)."""
     from torch.distributed.tensor import distribute_tensor
-    if isinstance(tree, dict):
-        return {k: distribute_tree(v, specs[k], mesh) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(distribute_tree(v, s, mesh)
-                          for v, s in zip(tree, specs))
-    return distribute_tensor(tree, mesh, placements(specs, mesh))
+    return _map_tree(lambda t, spec: distribute_tensor(
+        t, mesh, placements(spec, mesh)), tree, specs)

@@ -248,6 +248,51 @@ def build_cell(cfg: ModelConfig, shape: InputShape, rules: Rules,
     return step, args
 
 
+def param_tree_pspecs(params: transformer.LM,
+                      pspecs: Dict[str, PartitionSpec]) -> dict:
+    """The specs of the reference's parameter tree
+    (``convert.lm_params_to_tree``): a stacked leaf (L, ...) takes its
+    layers' spec after a None on the layer dim."""
+    from ..convert import lm_tree_groups
+    return nest({path: P(None, *pspecs[names[0]]) if is_stacked(path)
+                 else pspecs[names[0]]
+                 for path, names in lm_tree_groups(params).items()})
+
+
+def init_sharded_params(cfg: ModelConfig, rules: Rules, *, generator,
+                        dtype=torch.bfloat16) -> transformer.LM:
+    """``transformer.init_params`` onto ``rules.mesh``: the same draws from
+    ``generator`` in the same order, on its device, module by module, each
+    module's parameters laid out by ``param_pspecs`` as soon as they are
+    drawn.  A rank then holds its shards and one module whole, never the
+    whole model, and a one-rank mesh holds ``init_params``'s numbers.
+    Every rank draws alike; each keeps its shard."""
+    from torch import nn
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from ..distributed.sharding import placements
+    mesh = rules.mesh
+    lm = transformer.LM(cfg, dtype, "meta")
+    specs = param_pspecs(lm, rules)
+    with torch.no_grad():
+        for prefix, m in lm.named_modules():
+            if m is lm or not hasattr(m, "reset_parameters"):
+                continue
+            m.to_empty(device=generator.device, recurse=False)
+            m.reset_parameters(generator)
+            for leaf, p in list(m.named_parameters(recurse=False)):
+                name = f"{prefix}.{leaf}" if prefix else leaf
+                dt = distribute_tensor(p.detach(), mesh,
+                                       placements(specs[name], mesh))
+                setattr(m, leaf, nn.Parameter(dt,
+                                              requires_grad=p.requires_grad))
+    left = [n for n, p in lm.named_parameters()
+            if not isinstance(p, DTensor)]
+    if left:
+        raise RuntimeError(f"init_sharded_params: no module draws {left[:3]}")
+    return lm
+
+
 def param_pspecs_for_opt(opt_state: dict, pspecs: Dict[str, PartitionSpec]
                          ) -> dict:
     """The AdamW state's tree of specs (the state's layout, module

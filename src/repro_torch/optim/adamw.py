@@ -72,11 +72,13 @@ def _factored_dims(shape) -> Optional[Tuple[int, int]]:
     return len(shape) - 2, len(shape) - 1
 
 
-def opt_init(params: nn.Module, cfg: OptConfig) -> dict:
-    """Zero state for ``params`` (an ``LM``) on its device, in the
+def opt_init(params: nn.Module, cfg: OptConfig, device=None) -> dict:
+    """Zero state for ``params`` (an ``LM``) on its device, or on
+    ``device`` when given (``"meta"`` for the shapes alone), in the
     reference's tree (module docstring)."""
     named = dict(params.named_parameters())
-    device = next(iter(named.values())).device
+    if device is None:
+        device = next(iter(named.values())).device
     flat = {}
     for path, names in lm_tree_groups(params).items():
         shape = tuple(named[names[0]].shape)

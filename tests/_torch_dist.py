@@ -26,13 +26,26 @@ def _entry(rank, world, store_path, fn, args, out_path):
         dist.destroy_process_group()
 
 
-def run_ranks(fn, tmp_path, *args, world: int = 8):
+def run_ranks(fn, tmp_path, *args, world: int = 8, timeout=None):
     """``fn(rank, *args)`` on ``world`` spawned gloo ranks -> rank 0's
-    result."""
+    result.  With ``timeout`` (seconds) ranks still running then are
+    killed and ``TimeoutError`` is raised: a world where one rank waits
+    in a collective that another skipped ends instead of hanging."""
+    import time
     store = os.path.join(str(tmp_path), "store")
     out = os.path.join(str(tmp_path), "rank0.pt")
-    mp.start_processes(_entry, args=(world, store, fn, args, out),
-                       nprocs=world, start_method="spawn")
+    ctx = mp.start_processes(_entry, args=(world, store, fn, args, out),
+                             nprocs=world, start_method="spawn", join=False)
+    deadline = None if timeout is None else time.monotonic() + timeout
+    while not ctx.join(timeout=1.0):
+        if deadline is not None and time.monotonic() > deadline:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            for p in ctx.processes:
+                p.join()
+            raise TimeoutError(f"{fn.__name__} on {world} ranks ran past "
+                               f"{timeout} s")
     return torch.load(out, weights_only=False)
 
 
