@@ -6,7 +6,8 @@ and the trainers take ``registry=None``.
 """
 from .metrics import (Counter, Gauge, Histogram, JsonlFlusher,
                       MetricsRegistry)
-from .profiling import annotate, named_scope, span
+from .profiling import (Span, SpanRecorder, annotate, named_scope, span,
+                        span_summary)
 from .trace import (NULL, TRACE_SCHEMA, BufferTracer, NullTracer, Tracer,
                     canonical_events, read_trace, to_chrome, trace_lines,
                     write_trace)
@@ -16,5 +17,6 @@ __all__ = [
     "canonical_events", "trace_lines", "write_trace", "read_trace",
     "to_chrome",
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "JsonlFlusher",
-    "annotate", "named_scope", "span",
+    "annotate", "named_scope", "span", "Span", "SpanRecorder",
+    "span_summary",
 ]

@@ -67,7 +67,7 @@ import numpy as np
 import torch
 
 from ..kernels.window_pack import DecisionRowSpec, pack_decision_rows
-from ..obs.profiling import annotate
+from ..obs.profiling import SpanRecorder, annotate
 from ..obs.trace import Tracer
 from .cluster import Cluster, ResourceSpec
 from .job import Job
@@ -198,13 +198,29 @@ class DeviceRollout:
 
 
 class _SyncCounter:
-    """Every device-to-host read inside the round loop goes through here."""
+    """Every device-to-host read inside the round loop goes through here;
+    with a span recorder, each read is a span its caller names."""
 
-    def __init__(self) -> None:
+    def __init__(self, spans: Optional[SpanRecorder] = None) -> None:
         self.n = 0
+        self.spans = spans
 
-    def __call__(self, *flags: torch.Tensor) -> list:
+    def __call__(self, span: str, *flags: torch.Tensor) -> list:
+        """A read inside the open phase, recorded as its child ``span``."""
         self.n += 1
+        if self.spans is None:
+            return torch.stack(flags).tolist()
+        self.spans.open(span)
+        out = torch.stack(flags).tolist()
+        self.spans.close()
+        return out
+
+    def phase(self, span: str, *flags: torch.Tensor) -> list:
+        """A read that is a phase of its own, ``span``, which the next
+        phase the caller opens ends."""
+        self.n += 1
+        if self.spans is not None:
+            self.spans.next(span)
         return torch.stack(flags).tolist()
 
 
@@ -321,7 +337,7 @@ def _easy_backfill(layout: DeviceLayout, arrays, st, free, need, waiting,
     go = torch.zeros_like(cand)
     ok = fitting(free_c, shadow_c, go)
     iterations = 0
-    while sync(ok.any())[0]:
+    while sync("sync.backfill", ok.any())[0]:
         iterations += 1
         debit = ok & ~ends_before_all
         cum = torch.cumsum(ok[..., None] * demands, dim=1)
@@ -397,14 +413,17 @@ def _row_spec(layout: DeviceLayout, has_drains: bool) -> DecisionRowSpec:
 def _device_rollout(layout: DeviceLayout, score_fn, policy_state,
                     explore: bool, eps: float, gen, collect: bool,
                     trace: bool, arrays, faults: DeviceFaults,
-                    sync: _SyncCounter):
+                    sync: _SyncCounter, spans: Optional[SpanRecorder]):
     """The whole N-env rollout (reference: ``_device_rollout``).
 
     Returns a dict of device tensors: final per-job/per-env state, the
     (T, N) actions and decided masks, the decision rows of the rounds that
     decided (``collect``), and the per-round lifecycle deltas (``trace``),
     which ``DeviceSimulator.emit_trace`` decodes into the
-    ``mrsch.trace/v1`` event stream."""
+    ``mrsch.trace/v1`` event stream.  With ``spans``, each round is a
+    ``round`` span covered by its phases: ``advance``, ``sync.gate``, and
+    in a deciding round ``front``, ``forward``, ``select`` and
+    ``backfill``; then ``record``."""
     N, J, R, W, T = (layout.n_envs, layout.n_jobs, layout.n_resources,
                      layout.window, layout.rounds)
     A = arrays["fail_times"].shape[2]
@@ -456,6 +475,8 @@ def _device_rollout(layout: DeviceLayout, score_fn, policy_state,
 
     def decide(s):
         now = s["now"]
+        if spans is not None:
+            spans.next("front")
         # One launch on the card: queued mask, free counts, pack, rows.
         waiting, n_waiting, free, pk_idx, pk_valid, obs = pack_decision_rows(
             spec, ready=s["ready"], now=now, started=s["started"],
@@ -471,7 +492,11 @@ def _device_rollout(layout: DeviceLayout, score_fn, policy_state,
         # queue pressure).
         overflow = (n_waiting - float(W)).clamp_min(0.0).to(torch.int32)
         s = {**s, "truncated": s["truncated"] + need * overflow}
+        if spans is not None:
+            spans.next("forward")
         scores = score_fn(policy_state, obs)[:, :W]
+        if spans is not None:
+            spans.next("select")
         masked = torch.where(win_valid, scores, -torch.inf)
         a = torch.argmax(masked, dim=1)
         if explore:
@@ -517,6 +542,8 @@ def _device_rollout(layout: DeviceLayout, score_fn, policy_state,
             s["cur_fail"] = torch.where(sel, wf_star[:, None], s["cur_fail"])
         # --- reservation + EASY backfill (scheduling pass ends).
         if layout.backfill:
+            if spans is not None:
+                spans.next("backfill")
             s = _easy_backfill(layout, arrays, s, free, reserve_env, waiting,
                                j_star, d_star, dur_all, will_fail_all, sync)
         s = {**s, "in_pass": s["in_pass"] & ~reserve_env}
@@ -542,6 +569,9 @@ def _device_rollout(layout: DeviceLayout, score_fn, policy_state,
 
     rounds_run = 0
     for t in range(T):
+        if spans is not None:
+            spans.round = t
+            spans.open("round", "advance")
         # Two-stage snapshots (pre-advance, post-advance): the deltas
         # distinguish advance-phase transitions (finish / fail / requeue
         # / drain / restore) from decide-phase starts.
@@ -550,15 +580,20 @@ def _device_rollout(layout: DeviceLayout, score_fn, policy_state,
         s_adv = st
         qa = device_queued(st["ready"], st["now"], st["started"],
                            st["finished"], st["failed"]).any(dim=1)
-        any_need, all_done = sync((st["in_pass"] & ~st["done"] & qa).any(),
-                                  st["done"].all())
+        any_need, all_done = sync.phase(
+            "sync.gate", (st["in_pass"] & ~st["done"] & qa).any(),
+            st["done"].all())
         rounds_run = t + 1
         if any_need:
             st, a_out, need, obs, dec = decide(st)
+            if spans is not None:
+                spans.next("record")
             actions[t] = a_out.to(torch.int32)
             decided[t] = need
             if collect:
                 obs_rows.append((t, obs))
+        elif spans is not None:
+            spans.next("record")
         if trace:
             tr["now"][t] = s_adv["now"]
             tr["finish_d"][t] = s_adv["finished"] & ~s_pre["finished"]
@@ -573,10 +608,12 @@ def _device_rollout(layout: DeviceLayout, score_fn, policy_state,
                 tr["drain_d"][t] = s_adv["drain_done"] & ~s_pre["drain_done"]
                 tr["restore_d"][t] = (s_adv["restore_done"]
                                       & ~s_pre["restore_done"])
-        if all_done:
+        if all_done and trace:
             # Every later round of the reference's scan is idle.
-            if trace:
-                tr["now"][t + 1:] = st["now"]
+            tr["now"][t + 1:] = st["now"]
+        if spans is not None:
+            spans.close(2)
+        if all_done:
             break
 
     out = {k: st[k] for k in (
@@ -614,13 +651,14 @@ class DeviceSimulator:
 
     ``faults`` mirrors the host engine: ``None``, one ``FaultSchedule``
     shared by every environment, or one (possibly ``None``) schedule per
-    jobset.
+    jobset.  ``spans`` (``repro_torch.obs.SpanRecorder``) records the
+    packing as one ``setup.pack`` span.
     """
 
     def __init__(self, resources: Sequence[ResourceSpec],
                  jobsets: Sequence[Sequence[Job]], policy,
                  config: SimConfig | None = None, *, faults=None,
-                 device=None):
+                 device=None, spans: Optional[SpanRecorder] = None):
         from ..core.agent import resolve_device
         from ..core.policy_api import supports_device
         if not supports_device(policy):
@@ -666,6 +704,8 @@ class DeviceSimulator:
                 f"the policy's network lives on {state_dev} but the device "
                 f"engine runs on {self.device}")
 
+        if spans is not None:
+            spans.open("setup.pack")
         self.jobsets = [sorted((j.copy() for j in js),
                                key=lambda j: (j.submit, j.jid))
                         for js in jobsets]
@@ -692,6 +732,8 @@ class DeviceSimulator:
             state_module=state_module, queue_cap=queue_cap)
         self.arrays = self._pack(self.jobsets)
         self.faults_arrays = self._pack_faults(self._faults)
+        if spans is not None:
+            spans.close()
         self.stats = DeviceStats()
 
     def _fault_rounds(self) -> int:
@@ -805,7 +847,8 @@ class DeviceSimulator:
 
     # ------------------------------------------------------------- rollout
     def rollout(self, eps: Optional[float] = None, seed: int = 0,
-                collect: bool = False, trace: bool = False) -> DeviceRollout:
+                collect: bool = False, trace: bool = False,
+                spans: Optional[SpanRecorder] = None) -> DeviceRollout:
         """Run every environment to completion (reference:
         ``DeviceSimulator.rollout``).
 
@@ -815,21 +858,31 @@ class DeviceSimulator:
         engine's numpy draws).  ``collect=True`` additionally returns the
         packed decision rows.  ``trace=True`` records the per-round
         lifecycle deltas that ``emit_trace`` decodes into the
-        ``mrsch.trace/v1`` event stream.
+        ``mrsch.trace/v1`` event stream.  ``spans``
+        (``repro_torch.obs.SpanRecorder``) records the rollout as a
+        ``rollout`` span holding a ``round`` span per round the loop runs
+        (``_device_rollout``) and the ``outputs`` span of the copies to the
+        host, with a ``sync.*`` span around every device-to-host read.
         """
+        if spans is not None:
+            spans.start_rollout()
+            spans.open("rollout")
         lay = self.layout
         explore = eps is not None
         gen = None
         if explore:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(int(seed))
-        sync = _SyncCounter()
+        sync = _SyncCounter(spans)
         with torch.no_grad(), \
                 annotate("mrsch.device.rollout"):
             raw, obs_rows, rounds_run = _device_rollout(
                 lay, self.policy.score_window, self.policy.init_state(),
                 explore, float(eps or 0.0), gen, collect, trace, self.arrays,
-                self.faults_arrays, sync)
+                self.faults_arrays, sync, spans)
+            if spans is not None:
+                spans.round = -1
+                spans.open("outputs")
             tr = raw.pop("trace", None)
             out = {k: v.cpu().numpy() for k, v in raw.items()}
             if tr is not None:
@@ -842,6 +895,8 @@ class DeviceSimulator:
                 if obs_rows:
                     rows = torch.stack([o for _, o in obs_rows]).cpu().numpy()
                     obs[[t for t, _ in obs_rows]] = rows
+            if spans is not None:
+                spans.close()
         if not out["done"].all():
             raise RuntimeError(
                 f"device rollout exhausted its round budget of "
@@ -854,6 +909,8 @@ class DeviceSimulator:
             policy_calls=int(decided.any(axis=1).sum()),
             max_batch=int(decided.sum(axis=1).max(initial=0)),
             rounds_run=rounds_run, host_syncs=sync.n)
+        if spans is not None:
+            spans.close()
         return DeviceRollout(
             actions=out["actions"], decided=decided,
             stats=self.stats, obs=obs, trace=tr,

@@ -9,9 +9,9 @@ import pytest
 
 import repro.sim as jsim
 import repro_torch.sim as tsim
-from _torch_parity import (PKGS, TRACERS, SlotPolicy, agent_pair,
-                           assert_results_close, env_actions, faulty_mini,
-                           synth_jobs, theta_mini)
+from _torch_parity import (PKGS, SMALL, TRACERS, SlotPolicy, agent_pair,
+                           assert_results_close, assert_results_equal,
+                           env_actions, faulty_mini, synth_jobs, theta_mini)
 from repro.core import FCFSPolicy as JFCFS
 from repro_torch.core import FCFSPolicy as TFCFS
 from repro_torch.core import supports_batch, supports_device
@@ -357,3 +357,77 @@ def test_fcfs_host_batched_stage():
         if len(ctxs) == 6:
             break
     assert list(TFCFS().select_batch(ctxs)) == [0] * 6
+
+
+# --------------------------------------------------------------- span phases
+SPAN_CASES = {"agent-backfill": ("agent", True),
+              "agent-no-backfill": ("agent", False),
+              "fcfs-backfill": ("fcfs", True)}
+
+
+@pytest.mark.parametrize("case", list(SPAN_CASES))
+def test_span_recorder_phases_cover_every_round(case):
+    """``spans=``: one ``round`` span per round run, covered without gaps
+    by its phases in order; one ``forward`` per deciding round; a
+    ``sync.*`` span per host sync; the same rollout as without spans; and
+    nothing recorded into a recorder that is not passed."""
+    from repro_torch.core.agent import AgentConfig, MRSchAgent
+    from repro_torch.obs import SpanRecorder
+    policy, backfill = SPAN_CASES[case]
+    pol = (MRSchAgent(res("torch"), AgentConfig(seed=0, **SMALL),
+                      device="cpu") if policy == "agent" else TFCFS())
+    cfg = tsim.SimConfig.for_engine("device", backfill=backfill)
+    rec = SpanRecorder()
+    ds = tsim.DeviceSimulator(res("torch"),
+                              [synth_jobs(tsim, s, n=25) for s in range(3)],
+                              pol, cfg, device="cpu", spans=rec)
+    assert rec.counts == {"setup.pack": 1}
+    off = ds.rollout()
+    assert rec.counts == {"setup.pack": 1}
+    on = ds.rollout(spans=rec)
+    np.testing.assert_array_equal(on.actions, off.actions)
+    np.testing.assert_array_equal(on.decided, off.decided)
+    for a, b in zip(off.results, on.results):
+        assert_results_equal(a, b)
+
+    st, n = on.stats, rec.counts
+    assert n["rollout"] == n["outputs"] == 1
+    assert n["round"] == n["advance"] == n["sync.gate"] == n["record"] \
+        == st.rounds_run
+    assert n["front"] == n["forward"] == n["select"] == st.rounds > 0
+    assert n.get("backfill", 0) == (st.rounds if backfill else 0)
+    assert n["sync.gate"] + n.get("sync.backfill", 0) == st.host_syncs
+    assert (n.get("sync.backfill", 0) > 0) == backfill
+
+    spans = rec.spans()
+    kids = {}
+    for i, s in enumerate(spans):
+        kids.setdefault(s.parent, []).append(i)
+    assert [(spans[i].name, spans[i].rollout) for i in kids[-1]] \
+        == [("setup.pack", -1), ("rollout", 0)]
+    ro = kids[-1][1]
+    rounds = [i for i in kids[ro] if spans[i].name == "round"]
+    assert [spans[i].name for i in kids[ro]] == ["round"] * len(rounds) \
+        + ["outputs"]
+    decide = ["front", "forward", "select"] + (["backfill"] if backfill
+                                               else [])
+    for t, r in enumerate(rounds):
+        c = kids[r]
+        names = [spans[i].name for i in c]
+        assert names in (["advance", "sync.gate", "record"],
+                         ["advance", "sync.gate", *decide, "record"])
+        assert spans[c[0]].start_ns == spans[r].start_ns
+        assert spans[c[-1]].end_ns == spans[r].end_ns
+        for a, b in zip(c, c[1:]):
+            assert spans[a].end_ns == spans[b].start_ns
+        for i in c + sum((kids.get(i, []) for i in c), []):
+            assert spans[i].round == t and spans[i].rollout == 0
+            assert spans[r].start_ns <= spans[i].start_ns \
+                <= spans[i].end_ns <= spans[r].end_ns
+        for b in (i for i in c if spans[i].name == "backfill"):
+            assert {spans[i].name for i in kids[b]} == {"sync.backfill"}
+    assert spans[kids[ro][-1]].round == -1
+
+    ds.rollout(spans=rec)
+    assert rec.counts["round"] == 2 * st.rounds_run
+    assert {s.rollout for s in rec.spans()} == {-1, 0, 1}

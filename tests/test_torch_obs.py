@@ -220,6 +220,60 @@ def test_profiler_scopes_keep_their_names():
     assert {"mrsch.device.rollout", "mrsch.vector.policy_select"} <= names
 
 
+def test_profiler_ranges_are_a_shared_no_op_when_no_profiler_runs():
+    """With no profiler enabled, ``annotate`` and ``named_scope`` return
+    one shared no-op context; under a profiler, a ``record_function``
+    range."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import profiling
+    assert tobs.annotate("mrsch.a") is profiling.NO_RANGE
+    assert tobs.named_scope("mrsch.kernel.b") is profiling.NO_RANGE
+    with profile(activities=[ProfilerActivity.CPU]):
+        for scope in (tobs.annotate("mrsch.a"),
+                      tobs.named_scope("mrsch.kernel.b")):
+            assert scope is not profiling.NO_RANGE
+            with scope:
+                pass
+    assert tobs.named_scope("mrsch.kernel.b") is profiling.NO_RANGE
+
+
+def test_span_recorder_nests_and_reads_the_profilers_clock():
+    """Spans nest by ``open``/``next``/``close``, count by name, give self
+    times, and lie on the profiler's clock: a span opened before a
+    ``record_function`` range and closed after it holds the range's
+    record."""
+    from torch.profiler import ProfilerActivity, profile
+    rec = tobs.SpanRecorder()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        rec.open("outer", "a")
+        rec.next("b")
+        with torch.profiler.record_function("probe"):
+            torch.ones(8).sum()
+        rec.open("c")
+        rec.close(3)
+    spans = rec.spans()
+    assert [(s.name, s.parent, s.rollout, s.round) for s in spans] == [
+        ("outer", -1, -1, -1), ("a", 0, -1, -1), ("b", 0, -1, -1),
+        ("c", 2, -1, -1)]
+    outer, a, b, c = spans
+    assert outer.start_ns == a.start_ns and a.end_ns == b.start_ns
+    assert c.end_ns == b.end_ns == outer.end_ns
+    assert rec.counts == {"outer": 1, "a": 1, "b": 1, "c": 1}
+    summary = tobs.span_summary(spans)
+    assert summary["outer"] == (1, outer.end_ns - outer.start_ns, 0)
+    assert summary["b"][2] == (b.end_ns - b.start_ns) - (c.end_ns - c.start_ns)
+    probe = [e for e in prof.profiler.kineto_results.events()
+             if e.name() == "probe"]
+    assert len(probe) == 1
+    assert b.start_ns <= probe[0].start_ns() <= probe[0].end_ns() <= c.start_ns
+    assert rec.start_rollout() == 0
+    rec.round = 4
+    rec.open("round")
+    rec.close()
+    assert rec.spans()[-1][3:] == (-1, 0, 4)
+
+
 def test_no_raw_profiler_ranges_left_in_the_package():
     """Every ``mrsch.*`` scope goes through ``repro_torch.obs.profiling``;
     no module but that one opens a ``record_function`` itself."""
